@@ -1,0 +1,47 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every library built from this directory exposes a plain C interface:
+// pointers and the stream arrive as void*, sizes as int, and each entry
+// point returns the cudaError_t of its launches as an int (0 = success),
+// so the Python wrapper can raise on a launch the driver refused.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define PREGO_EXPORT extern "C" __attribute__((visibility("default")))
+
+// An argument the kernel cannot take; returned before any launch.
+constexpr int PREGO_BAD_ARGUMENT = 9001;
+
+__device__ __forceinline__ float bf2f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ __nv_bfloat16 f2bf(float x) { return __float2bfloat16(x); }
+
+// Round a float through bf16 and back (the cast a bf16 operand goes
+// through before an f32-accumulated product).
+__device__ __forceinline__ float round_bf16(float x) { return bf2f(f2bf(x)); }
+
+// Two packed bf16 values -> float2 (low half first, as they sit in memory).
+__device__ __forceinline__ float2 bf16x2_to_float2(unsigned int raw) {
+    __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&raw);
+    return __bfloat1622float2(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    return v;
+}
+
+// Each library is built from one .cu file, so this definition appears once
+// per shared object.
+PREGO_EXPORT const char* prego_error_string(int err) {
+    if (err == PREGO_BAD_ARGUMENT) return "argument the kernel does not take";
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

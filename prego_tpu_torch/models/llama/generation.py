@@ -1,0 +1,329 @@
+"""Batched LLaMA generation: prefill + single-token decode loop (port of
+prego_tpu/models/llama/generation.py).
+
+Parity surface: Llama.generate / Llama.text_completion
+(llama/generation.py:127-282):
+  * left-aligned prompts padded with pad_id into a (B, total_len) buffer;
+  * positions still inside a longer prompt keep their prompt token
+    (input_text_mask override, generation.py:204-207);
+  * per-prompt eos tracked only on generated positions; the loop ends
+    when every row has emitted eos (generation.py:208-212);
+  * host-side post-processing cuts echo, max_gen_len and eos.
+
+The JAX package runs the decode loop as one jitted while_loop. Here it is
+a Python loop whose per-token work stays on the device: the token buffer,
+the eos flags and the sampler's draws never come back to the host inside
+the loop, except for an all-rows-done check every ``EOS_CHECK_EVERY``
+tokens (rows that are done only append pad, so running a few steps past
+the last eos changes no output). Prompts share their longest common
+prefix through an LRU of B=1 prefix caches, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from prego_tpu_torch.core.seed import make_generator
+from prego_tpu_torch.models.llama.config import LlamaConfig
+from prego_tpu_torch.models.llama.model import (
+    Cache,
+    Params,
+    clone_cache,
+    forward,
+    init_cache,
+    precompute_rope,
+)
+from prego_tpu_torch.ops.sampling import sample_next_token
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class Llama:
+    """User-facing generation wrapper (Llama.build/text_completion parity)
+    with KV prefix caching: the PREGO anticipation loop sends the same
+    few-shot context many times per video, so the shared prompt prefix is
+    prefilled once (B=1, 256-token chunks) and decode resumes from the
+    cached KV."""
+
+    PREFIX_CHUNK = 64  # granularity of the shared prefix that is cached
+    PREFIX_BUILD_CHUNK = 256  # prefill chunk when building a prefix cache
+    PREFIX_CACHE_SLOTS = 4  # LRU entries; each holds a B=1 cache of every layer
+    PAD_TO_MULTIPLE = 64  # token buffers are rounded up to this length
+    EOS_CHECK_EVERY = 8  # decode steps between host checks for all-done
+
+    def __init__(self, params: Params, tokenizer, config: LlamaConfig):
+        self.params = params
+        self.tokenizer = tokenizer
+        self.config = config
+        self.device = params["norm"].device
+        self.dtype = params["norm"].dtype
+        self.rope = precompute_rope(config, device=self.device)
+        self.generator = make_generator(1, self.device)  # generation.py:95 seeds 1
+        self._prefix_caches: "OrderedDict[Tuple[int, ...], Cache]" = OrderedDict()
+        self.prefix_rebuilds = 0  # observability: from-scratch prefill count
+        self.prefix_extends = 0  # observability: delta-prefill count
+        self.decode_steps = 0  # single-token forwards run (all rows at once)
+
+    # -- the decode loop --
+
+    @torch.no_grad()
+    def _generate_body(
+        self,
+        tokens: torch.Tensor,  # (B, buf_len) int64, pad-filled, suffix coords
+        min_prompt_len: int,
+        total_len: int,
+        cache: Cache,
+        start_offset: int,  # absolute position of tokens[:, 0]
+        temperature: float,
+        top_p: float,
+        want_logprobs: bool,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        config = self.config
+        eos_id, pad_id = int(self.tokenizer.eos_id), int(self.tokenizer.pad_id)
+        B, buf_len = tokens.shape
+        input_text_mask = tokens != pad_id
+        prefill_logits, cache = forward(
+            self.params, tokens, start_offset, cache, config, self.rope
+        )
+        last_logits = prefill_logits[:, min_prompt_len - 1]
+        logprobs = None
+        if want_logprobs:
+            # prompt-token logprobs: position i+1 scored by logits at i
+            logprobs = torch.zeros(B, buf_len, dtype=torch.float32, device=tokens.device)
+            lp = torch.log_softmax(prefill_logits[:, :-1], dim=-1)
+            gathered = torch.gather(lp, -1, tokens[:, 1:, None].clamp(min=0))[..., 0]
+            pos = torch.arange(1, buf_len, device=tokens.device)[None, :]
+            in_prompt = (pos < min_prompt_len) & input_text_mask[:, 1:]
+            logprobs[:, 1:] = torch.where(in_prompt, gathered, torch.zeros_like(gathered))
+        eos_reached = torch.zeros(B, dtype=torch.bool, device=tokens.device)
+        pad = torch.full((B,), pad_id, dtype=tokens.dtype, device=tokens.device)
+        for n, cur_pos in enumerate(range(min_prompt_len, total_len)):
+            if n and n % self.EOS_CHECK_EVERY == 0 and bool(eos_reached.all()):
+                break
+            next_token = sample_next_token(last_logits, temperature, top_p, self.generator)
+            cur_mask = input_text_mask[:, cur_pos]
+            next_token = torch.where(cur_mask, tokens[:, cur_pos], next_token)
+            next_token = torch.where(eos_reached, pad, next_token)
+            tokens[:, cur_pos] = next_token
+            if want_logprobs:
+                lp_t = torch.log_softmax(last_logits, dim=-1)
+                logprobs[:, cur_pos] = torch.gather(lp_t, -1, next_token[:, None].clamp(min=0))[:, 0]
+            eos_reached |= ~cur_mask & (next_token == eos_id)
+            logits, cache = forward(
+                self.params, next_token[:, None], start_offset + cur_pos, cache, config, self.rope
+            )
+            self.decode_steps += 1
+            last_logits = logits[:, 0]
+        return tokens, logprobs
+
+    # -- low level --
+
+    def generate(
+        self,
+        prompt_tokens: List[List[int]],
+        max_gen_len: int,
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+        echo: bool = False,
+        logprobs: bool = False,
+    ) -> Tuple[List[List[int]], Optional[List[List[float]]]]:
+        config = self.config
+        bsz = len(prompt_tokens)
+        if bsz > config.max_batch_size:
+            # split oversized batches (the reference asserts, generation.py:160)
+            out: List[List[int]] = []
+            out_lp: List[List[float]] = []
+            for i in range(0, bsz, config.max_batch_size):
+                toks, lps = self.generate(
+                    prompt_tokens[i : i + config.max_batch_size],
+                    max_gen_len, temperature, top_p, echo, logprobs,
+                )
+                out.extend(toks)
+                if logprobs:
+                    out_lp.extend(lps)
+            return out, (out_lp if logprobs else None)
+        min_prompt_len = min(len(t) for t in prompt_tokens)
+        max_prompt_len = max(len(t) for t in prompt_tokens)
+        if max_prompt_len > config.max_seq_len:
+            raise ValueError(f"prompt of {max_prompt_len} tokens exceeds max_seq_len")
+        total_len = min(config.max_seq_len, max_gen_len + max_prompt_len)
+        pad_id = self.tokenizer.pad_id
+        buf_len = min(_round_up(total_len, self.PAD_TO_MULTIPLE), config.max_seq_len)
+        tokens = np.full((bsz, buf_len), pad_id, np.int64)
+        for i, t in enumerate(prompt_tokens):
+            tokens[i, : len(t)] = np.asarray(t, np.int64)
+
+        if min_prompt_len == total_len:
+            out = tokens  # nothing to generate (generation.py:179-186 edge)
+            lp = np.zeros_like(tokens, np.float32)
+        else:
+            cache = init_cache(config, bsz, dtype=self.dtype, device=self.device)
+            out_t, lp_t = self._generate_body(
+                torch.from_numpy(tokens).to(self.device), min_prompt_len, total_len,
+                cache, 0, float(temperature), float(top_p), logprobs,
+            )
+            out = out_t.cpu().numpy()  # one read-back per call
+            lp = lp_t.cpu().numpy() if logprobs else np.zeros_like(out, np.float32)
+
+        out_tokens, out_logprobs = [], []
+        for i, toks in enumerate(out.tolist()):
+            start = 0 if echo else len(prompt_tokens[i])
+            stop = len(prompt_tokens[i]) + max_gen_len
+            toks = toks[start:stop]
+            probs = lp[i].tolist()[start:stop]
+            if pad_id in toks:  # cut at pad (padding / post-eos fill), then at eos
+                cut = toks.index(pad_id)
+                toks, probs = toks[:cut], probs[:cut]
+            if self.tokenizer.eos_id in toks:
+                cut = toks.index(self.tokenizer.eos_id)
+                toks, probs = toks[:cut], probs[:cut]
+            out_tokens.append(toks)
+            out_logprobs.append(probs)
+        return out_tokens, (out_logprobs if logprobs else None)
+
+    # -- prefix-cached generation --
+
+    @torch.no_grad()
+    def _ensure_prefix_cache(self, prefix: Tuple[int, ...]) -> Cache:
+        cached = self._prefix_caches.get(prefix)
+        if cached is not None:
+            self._prefix_caches.move_to_end(prefix)  # LRU touch
+            return cached
+        # extend the longest cached proper prefix when there is one; its
+        # entry stays valid because the extension works on a clone
+        base_key = None
+        for k in self._prefix_caches:
+            if len(k) < len(prefix) and prefix[: len(k)] == k:
+                if base_key is None or len(k) > len(base_key):
+                    base_key = k
+        if base_key is not None:
+            cache = clone_cache(self._prefix_caches[base_key])
+            start = len(base_key)
+            self.prefix_extends += 1
+        else:
+            cache = init_cache(self.config, 1, dtype=self.dtype, device=self.device)
+            start = 0
+            self.prefix_rebuilds += 1
+        T = self.config.max_seq_len
+        step = min(self.PREFIX_BUILD_CHUNK, T)
+        buf = np.asarray(prefix, np.int64)
+        for i in range(start, len(prefix), step):
+            # the pad-filled tail writes only past the prefix, and stops at
+            # the cache's end (the JAX package's update clamps the chunk's
+            # start instead, which moves an extension's K/V to the wrong
+            # positions when i + step > max_seq_len)
+            width = min(step, T - i)
+            chunk = buf[i : i + width]
+            if len(chunk) < width:
+                chunk = np.concatenate(
+                    [chunk, np.full(width - len(chunk), self.tokenizer.pad_id, np.int64)]
+                )
+            _, cache = forward(
+                self.params, torch.from_numpy(chunk[None, :]).to(self.device), i,
+                cache, self.config, self.rope,
+            )
+        self._prefix_caches[prefix] = cache
+        while len(self._prefix_caches) > self.PREFIX_CACHE_SLOTS:
+            self._prefix_caches.popitem(last=False)  # evict least-recent
+        return cache
+
+    def generate_with_prefix_cache(
+        self,
+        prompt_tokens: List[List[int]],
+        max_gen_len: int,
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+    ) -> List[List[int]]:
+        """Generate completions reusing the KV of the batch-common prompt
+        prefix; plain ``generate`` when that prefix is shorter than one
+        PREFIX_CHUNK. Returns generated (non-echo) tokens."""
+        config = self.config
+        bsz = len(prompt_tokens)
+        if bsz > config.max_batch_size:
+            out: List[List[int]] = []
+            for i in range(0, bsz, config.max_batch_size):
+                out.extend(
+                    self.generate_with_prefix_cache(
+                        prompt_tokens[i : i + config.max_batch_size],
+                        max_gen_len, temperature, top_p,
+                    )
+                )
+            return out
+        if max(len(t) for t in prompt_tokens) > config.max_seq_len:
+            raise ValueError("prompt exceeds max_seq_len")
+        common = min(len(t) for t in prompt_tokens)
+        first = prompt_tokens[0]
+        shared = 0
+        while shared < common and all(t[shared] == first[shared] for t in prompt_tokens):
+            shared += 1
+        # keep >= 1 prompt token in the suffix so prefill yields sampling logits
+        eff = (min(shared, common - 1) // self.PREFIX_CHUNK) * self.PREFIX_CHUNK
+        if eff < self.PREFIX_CHUNK:
+            return self.generate(prompt_tokens, max_gen_len, temperature, top_p)[0]
+
+        cache1 = self._ensure_prefix_cache(tuple(first[:eff]))
+        suffixes = [t[eff:] for t in prompt_tokens]
+        min_s = min(len(s) for s in suffixes)
+        max_s = max(len(s) for s in suffixes)
+        total_s = min(config.max_seq_len - eff, max_gen_len + max_s)
+        pad_id = self.tokenizer.pad_id
+        buf_len = min(_round_up(total_s, self.PAD_TO_MULTIPLE), config.max_seq_len - eff)
+        tokens = np.full((bsz, buf_len), pad_id, np.int64)
+        for i, s in enumerate(suffixes):
+            tokens[i, : len(s)] = np.asarray(s, np.int64)
+
+        # the B=1 prefix KV is copied to the batch; decode writes per row
+        out_t, _ = self._generate_body(
+            torch.from_numpy(tokens).to(self.device), min_s, total_s,
+            clone_cache(cache1, batch=bsz), eff, float(temperature), float(top_p), False,
+        )
+        out_tokens = []
+        for i, toks in enumerate(out_t.cpu().numpy().tolist()):
+            toks = toks[len(suffixes[i]) : len(suffixes[i]) + max_gen_len]
+            if pad_id in toks:
+                toks = toks[: toks.index(pad_id)]
+            if self.tokenizer.eos_id in toks:
+                toks = toks[: toks.index(self.tokenizer.eos_id)]
+            out_tokens.append(toks)
+        return out_tokens
+
+    # -- reference seam --
+
+    def text_completion(
+        self,
+        prompts: List[str],
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+        max_gen_len: Optional[int] = None,
+        logprobs: bool = False,
+        echo: bool = False,
+        use_prefix_cache: bool = False,
+    ) -> List[Dict]:
+        if max_gen_len is None:
+            max_gen_len = self.config.max_seq_len - 1
+        prompt_tokens = [self.tokenizer.encode(x, bos=True, eos=False) for x in prompts]
+        if use_prefix_cache and not logprobs and not echo:
+            generation_tokens = self.generate_with_prefix_cache(
+                prompt_tokens, max_gen_len=max_gen_len, temperature=temperature, top_p=top_p,
+            )
+            return [{"generation": self.tokenizer.decode(t)} for t in generation_tokens]
+        generation_tokens, generation_logprobs = self.generate(
+            prompt_tokens, max_gen_len=max_gen_len, temperature=temperature,
+            top_p=top_p, echo=echo, logprobs=logprobs,
+        )
+        if logprobs:
+            return [
+                {
+                    "generation": self.tokenizer.decode(t),
+                    "tokens": [self.tokenizer.decode([x]) for x in t],
+                    "logprobs": lp,
+                }
+                for t, lp in zip(generation_tokens, generation_logprobs)
+            ]
+        return [{"generation": self.tokenizer.decode(t)} for t in generation_tokens]

@@ -1,0 +1,87 @@
+"""K7a: the decode FFN sub-layer in CUDA (``csrc/fused_ffn.cu``).
+
+Port of prego_tpu/ops/fused_ffn.py::fused_ffn_block: returns
+``h + ffn(rms_norm(h, norm_weight, eps))`` in h's dtype, with w13 the
+fused [w1 | w3] (D, 2F) and w2 (F, D). The dtype walk is the JAX one:
+f32 mean square and rsqrt, normed cast to h's dtype and then scaled by
+the weight in h's dtype, f32-accumulated products, the SwiGLU activation
+cast to h's dtype, and the residual add in h's dtype.
+
+On a CUDA tensor ``fused_ffn_block`` launches the kernel (bf16, decode
+rows M <= 8); on a CPU tensor it runs ``fused_ffn_block_reference``, the
+unfused op sequence ``rms_norm -> feed_forward -> + h``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from prego_tpu_torch.ops._cuda import (
+    CudaKernel, c_float, c_int, c_ptr, check_cuda_tensor, stream_ptr,
+)
+from prego_tpu_torch.ops.dense import mm_f32
+
+KERNEL = CudaKernel(
+    "fused_ffn",
+    "fused_ffn.cu",
+    {"prego_fused_ffn_block": [c_ptr] * 8 + [c_int] * 4 + [c_float, c_ptr]},
+)
+
+MAX_DECODE_ROWS = 8  # the main path's decode M is at most max_batch_size = 8
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """prego_tpu/models/llama/model.py:373-376: f32 statistics, the normed
+    value cast to x's dtype, then scaled by the weight."""
+    xf = x.float()
+    normed = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return normed.to(x.dtype) * weight
+
+
+def feed_forward_reference(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """silu(x.w1) * (x.w3) cast to x's dtype, then .w2, as f32."""
+    F = w2.shape[0]
+    g13 = mm_f32(x, w13)
+    act = (torch.nn.functional.silu(g13[..., :F]) * g13[..., F:]).to(x.dtype)
+    return mm_f32(act, w2)
+
+
+def fused_ffn_block_reference(
+    h: torch.Tensor, norm_weight: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, same dtype walk."""
+    return h + feed_forward_reference(rms_norm(h, norm_weight, eps), w13, w2).to(h.dtype)
+
+
+def fused_ffn_block(
+    h: torch.Tensor,  # (M, D)
+    norm_weight: torch.Tensor,  # (D,)
+    w13: torch.Tensor,  # (D, 2F)
+    w2: torch.Tensor,  # (F, D)
+    eps: float,
+) -> torch.Tensor:
+    if not h.is_cuda:
+        return fused_ffn_block_reference(h, norm_weight, w13, w2, eps)
+    M, D = h.shape
+    F = w2.shape[0]
+    if not 1 <= M <= MAX_DECODE_ROWS:
+        raise ValueError(f"fused_ffn_block: M={M} rows, the kernel takes 1..{MAX_DECODE_ROWS}")
+    if D % 8 or F % 4:
+        raise ValueError(f"fused_ffn_block: D={D} must be a multiple of 8 and F={F} of 4")
+    check_cuda_tensor("h", h, torch.bfloat16)
+    check_cuda_tensor("norm_weight", norm_weight, torch.bfloat16, (D,))
+    check_cuda_tensor("w13", w13, torch.bfloat16, (D, 2 * F))
+    check_cuda_tensor("w2", w2, torch.bfloat16, (F, D))
+    splits = max(1, min(8, F // 128))  # blocks sharing the F reduction of W2
+    out = torch.empty_like(h)
+    xn_t = torch.empty(D, M, dtype=torch.bfloat16, device=h.device)
+    a_t = torch.empty(F, M, dtype=torch.bfloat16, device=h.device)
+    part = torch.empty(splits, M, D, dtype=torch.float32, device=h.device)
+    KERNEL.launches += 1
+    KERNEL.call(
+        "prego_fused_ffn_block",
+        h.data_ptr(), norm_weight.data_ptr(), w13.data_ptr(), w2.data_ptr(), xn_t.data_ptr(),
+        a_t.data_ptr(), part.data_ptr(), out.data_ptr(), M, D, F, splits, float(eps),
+        stream_ptr(h.device),
+    )
+    return out
