@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Sequence, Set
 from prego_tpu_torch.anticipation.cleaning import clean_generation
 from prego_tpu_torch.anticipation.llm import CompletionLLM
 from prego_tpu_torch.anticipation.prompts import PromptBuilder, symbolize_sequence
-from prego_tpu.metrics.mistake import get_metrics
+from prego_tpu_torch.metrics.mistake import get_metrics
 
 
 @dataclass

@@ -20,6 +20,7 @@ from typing import Callable, Dict, List, Optional, Protocol
 
 import torch
 
+from prego_tpu_torch.core.device import resolve_device
 from prego_tpu_torch.core.registry import LLMS
 
 
@@ -97,12 +98,12 @@ class TorchLlamaLLM:
         fabricated: Optional[str] = None,  # "7b"/"13b"/"1b"/"tiny": random weights
         params=None,  # the port's parameter dict (checkpoint/bridge.py)
         config=None,  # its LlamaConfig, required with params
-        device: Optional[str] = None,
+        device: str = "cuda",  # raises where there is no card; "cpu" on request
     ):
         from prego_tpu_torch.models.llama import ByteTokenizer, Llama, load_tokenizer
         from prego_tpu_torch.models.llama.model import fuse_projections, init_params
 
-        device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        device = resolve_device(device)
         # bf16 is the serving dtype on the card; the CPU path runs f32, as
         # the JAX package does off the TPU
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32

@@ -13,14 +13,25 @@ Covered trees:
 
 bf16 leaves cross bit-exactly: numpy's ml_dtypes bfloat16 is viewed as
 uint16 and reinterpreted on the torch side.
+
+Optimizer state crosses too. optax's Adam and AdamW state flattens
+(``jax.tree.leaves``) to count, the ``mu`` tree, the ``nu`` tree, and a
+second count where a learning-rate schedule is on. ``adam_to_optax``
+writes the port's torch Adam/AdamW state as a list with those leaves in
+that order, so ``prego_tpu.cli.train --resume`` unflattens it into its
+own optax state unchanged; ``adam_from_optax`` reads either that list or
+a JAX checkpoint's stubbed optax state back into ``step``, ``exp_avg``
+and ``exp_avg_sq``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from prego_tpu_torch.checkpoint.io import tree_leaves
 
 _MINIROAD_KEYS = {"embed", "ln", "cls", "gru"}
 _GRU_KEYS = {"w_ih", "b_ih", "w_hh", "b_hh"}
@@ -97,3 +108,43 @@ def llama_from_numpy(params, device="cpu", dtype: Optional[torch.dtype] = None):
 def to_numpy_tree(params):
     """The port's tensor dict -> numpy pytree the JAX package accepts."""
     return _map(params, to_numpy)
+
+
+def _adam_moment(optimizer: torch.optim.Optimizer, p: torch.Tensor, key: str) -> np.ndarray:
+    state = optimizer.state.get(p)
+    return to_numpy(state[key]) if state else np.zeros(tuple(p.shape), np.float32)
+
+
+def adam_to_optax(optimizer: torch.optim.Optimizer, params, schedule: bool) -> List[Any]:
+    """[count, mu, nu] (+ [count] with a schedule): ``jax.tree.leaves`` of
+    it are optax's Adam/AdamW state leaves, in optax's order; mu and nu
+    keep the parameters' tree."""
+    first = optimizer.state.get(tree_leaves(params)[0])
+    count = np.asarray(int(first["step"]) if first else 0, np.int32)
+    mu = _map(params, lambda p: _adam_moment(optimizer, p, "exp_avg"))
+    nu = _map(params, lambda p: _adam_moment(optimizer, p, "exp_avg_sq"))
+    return [count, mu, nu] + ([count.copy()] if schedule else [])
+
+
+def adam_from_optax(optimizer: torch.optim.Optimizer, params, opt_state) -> int:
+    """Load optax-ordered Adam/AdamW state (the port's list, or a JAX
+    checkpoint's stubbed optax tuple) into ``optimizer``'s state for the
+    tensors of ``params``. Returns the update count."""
+    plist = tree_leaves(params)
+    leaves = tree_leaves(opt_state)
+    N = len(plist)
+    if len(leaves) not in (2 * N + 1, 2 * N + 2):
+        raise ValueError(
+            f"optimizer state has {len(leaves)} leaves; Adam over {N} parameters "
+            f"has {2 * N + 1} (or {2 * N + 2} with a schedule)"
+        )
+    count = int(np.asarray(leaves[0]))
+    for p, m, v in zip(plist, leaves[1 : 1 + N], leaves[1 + N : 1 + 2 * N]):
+        if tuple(np.shape(m)) != tuple(p.shape) or tuple(np.shape(v)) != tuple(p.shape):
+            raise ValueError(f"optimizer moment of shape {np.shape(m)} for a parameter {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": to_tensor(m, p.device, p.dtype),
+            "exp_avg_sq": to_tensor(v, p.device, p.dtype),
+        }
+    return count

@@ -9,7 +9,14 @@ A checkpoint written by the JAX trainer pickles its optimizer state with
 optax's classes. Loading therefore goes through an unpickler that admits
 numpy and a short list of builtins and replaces every other class with an
 inert stub, so ``params`` loads anywhere and nothing else is imported or
-run.
+run; ``tree_leaves`` walks such a state in optax's leaf order, which is
+how optimizer state crosses (``checkpoint/bridge.py``).
+
+The dropout stream does not cross frameworks: the JAX package keeps a JAX
+PRNG key under ``rng``, which torch cannot use, and a torch generator's
+state is no JAX key. The port's trainer therefore writes ``rng=None`` (the
+JAX trainer then restarts its stream from the seed) and keeps its
+generator's state under ``extra["torch_rng"]``; it ignores a JAX key.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import builtins
 import collections
 import os
 import pickle
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,7 +40,15 @@ _SAFE_BUILTINS = frozenset(
 
 class _Stub:
     """Stand-in for a class the loader does not admit: keeps its
-    constructor arguments and state, runs no code of the original."""
+    constructor arguments and state, runs no code of the original. The
+    arguments are kept in ``__new__`` too, which is what unpickling calls
+    for a named tuple (optax's states), so their fields survive."""
+
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        obj.args = args
+        obj.kwargs = kwargs
+        return obj
 
     def __init__(self, *args, **kwargs):
         self.args = args
@@ -97,3 +112,18 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 def load_params(path: str):
     """The checkpoint's parameter pytree, as host numpy arrays."""
     return load_checkpoint(path)["params"]
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a loaded pytree in ``jax.tree.leaves`` order: dict
+    values by sorted key, lists and tuples in order, a stubbed class
+    (an optax state) by its constructor arguments; ``None`` has none."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    if isinstance(tree, _Stub):
+        return tree_leaves(list(tree.args))
+    return [tree]

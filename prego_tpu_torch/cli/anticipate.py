@@ -129,8 +129,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     p.add_argument("--checkpoint_every", type=int, default=10)
     p.add_argument("--verbose", action="store_true")
-    p.add_argument("--device", type=str, default=None,
-                   help="torch-llama device: cuda | cpu (default: cuda if present)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch-llama device: cuda | cpu (default cuda; raises where there is no card)")
     return p.parse_args(argv)
 
 

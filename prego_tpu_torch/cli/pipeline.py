@@ -24,7 +24,7 @@ import os
 import os.path as osp
 from typing import List, Optional
 
-from prego_tpu.aggregate import aggregate
+from prego_tpu_torch.aggregate import aggregate
 from prego_tpu_torch.core import get_logger
 
 
@@ -61,7 +61,8 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--fabricated", type=str, default=None,
                    choices=["7b", "13b", "1b", "tiny"],
                    help="torch-llama with random weights at a reference shape")
-    p.add_argument("--device", type=str, default=None, help="cuda | cpu (default: cuda if present)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda | cpu (default cuda; raises where there is no card)")
     args = p.parse_args(argv)
 
     logger = get_logger()
@@ -84,7 +85,7 @@ def main(argv: Optional[List[str]] = None):
                 "--eval", args.ckpt,
                 "--eval_output_dir", osp.dirname(raw_path),
                 "--eval_output_name", osp.basename(raw_path),
-                *(["--device", args.device] if args.device else []),
+                "--device", args.device,
             ]
         )
         logger.info(f"[pipeline] recognition predictions -> {raw_path}")
@@ -125,8 +126,7 @@ def main(argv: Optional[List[str]] = None):
         ant_args += ["--tokenizer_path", args.tokenizer_path]
     if args.fabricated:
         ant_args += ["--fabricated", args.fabricated]
-    if args.device:
-        ant_args += ["--device", args.device]
+    ant_args += ["--device", args.device]
     result = anticipate_main(ant_args)
     logger.info("[pipeline] done")
     return result

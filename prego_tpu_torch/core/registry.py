@@ -61,4 +61,6 @@ class Registry(Generic[T]):
 # the components ported so far).
 MODELS: Registry = Registry("models")
 EVALUATORS: Registry = Registry("evaluators")
+TRAINERS: Registry = Registry("trainers")
+CRITERIONS: Registry = Registry("criterions")
 LLMS: Registry = Registry("llms")

@@ -12,7 +12,8 @@ As in the JAX package the model is stateless: parameters are a dict of
 tensors with the JAX pytree's keys and (in, out) layout, so checkpoints
 and parity tests cross over through ``checkpoint/bridge.py``. When the
 flow stream is structurally zero (``flow_is_zero``) the dead half of the
-embed product is skipped. Eval only: dropout is not applied.
+embed product is skipped. Dropout is applied in ``forward_train`` only,
+with its mask drawn from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from prego_tpu.data.features import FEATURE_SIZES
+from prego_tpu_torch.data.features import FEATURE_SIZES
 from prego_tpu_torch.core.registry import MODELS
 from prego_tpu_torch.ops.dense import mm_f32
 from prego_tpu_torch.ops.gru import gru_cell, gru_scan, init_gru_params
 from prego_tpu_torch.ops.gru_cuda import gru_layer
+from prego_tpu_torch.ops.gru_cuda_vjp import gru_trainable
 
 Params = Dict[str, Any]
 
@@ -81,8 +83,10 @@ class MiniROAD:
 
     def _embed(
         self, params: Params, rgb: torch.Tensor, flow: Optional[torch.Tensor], *,
-        flow_is_zero: bool,
+        flow_is_zero: bool, generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """Embedding; with a ``generator``, training dropout: a kept unit
+        is scaled by 1 / keep, the mask drawn on the tensor's device."""
         w, b = params["embed"]["w"], params["embed"]["b"]
         if self.use_rgb and self.use_flow:
             if flow_is_zero:
@@ -99,7 +103,12 @@ class MiniROAD:
         var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
         x = (x - mu) * torch.rsqrt(var + 1e-5)
         x = x * params["ln"]["scale"] + params["ln"]["bias"]
-        return torch.relu(x).to(rgb.dtype)
+        x = torch.relu(x)
+        if generator is not None and self.dropout > 0.0:
+            keep = 1.0 - self.dropout
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros_like(x))
+        return x.to(rgb.dtype)
 
     def _run_gru(self, params: Params, x: torch.Tensor, backend: str = "scan") -> torch.Tensor:
         """backend 'kernel' streams bf16 through the K1 wrapper (the kernel
@@ -115,10 +124,43 @@ class MiniROAD:
                 h, _ = gru_scan(h, h0, layer_params)
         return h
 
+    def _run_gru_train(self, params: Params, x: torch.Tensor, backend: str) -> torch.Tensor:
+        """backend 'pallas_train' (the JAX config's name) runs the trainable
+        fused layer, K1 forward and K6 backward with bf16 streaming (their
+        plain versions on the CPU); 'scan' differentiates the f32
+        reference recurrence with autograd. A CUDA tensor always takes the
+        kernels."""
+        if backend not in ("scan", "pallas_train"):
+            raise ValueError(f"train_gru_backend {backend!r}: expected 'scan' or 'pallas_train'")
+        B = x.shape[0]
+        h = x
+        for layer_params in params["gru"]:
+            h0 = torch.zeros(B, self.hidden_dim, dtype=x.dtype, device=x.device)
+            if backend == "pallas_train" or x.is_cuda:
+                h, _ = gru_trainable(h, h0, layer_params, stream_dtype=torch.bfloat16)
+            else:
+                h, _ = gru_scan(h, h0, layer_params)
+        return h
+
     def _classify(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         return mm_f32(torch.relu(h), params["cls"]["w"]) + params["cls"]["b"]
 
     # ---- public forwards ----
+
+    def forward_train(
+        self, params: Params, rgb: torch.Tensor, flow: Optional[torch.Tensor],
+        generator: Optional[torch.Generator], flow_is_zero: bool = False,
+        backend: str = "scan",
+    ) -> torch.Tensor:
+        """Training forward on windows -> last-frame logits (B, K). The
+        reference computes logits for every frame and the NONUNIFORM loss
+        keeps only the last; classifying the last hidden state alone is the
+        same. Dropout draws from ``generator``, which only dropout 0 may omit."""
+        if generator is None and self.dropout > 0.0:
+            raise ValueError("forward_train: dropout needs a generator")
+        x = self._embed(params, rgb, flow, flow_is_zero=flow_is_zero, generator=generator)
+        h = self._run_gru_train(params, x, backend)
+        return self._classify(params, h[:, -1, :])
 
     def forward_full(
         self, params: Params, rgb: torch.Tensor, flow: Optional[torch.Tensor],

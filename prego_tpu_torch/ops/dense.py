@@ -13,8 +13,11 @@ import torch
 
 
 def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ w (K, N) -> (..., N) float32."""
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
+    """x (..., K) @ w (K, N) -> (..., N) float32. Operands of two dtypes
+    are promoted as JAX promotes them (bf16 with f32 is an f32 product)."""
+    if x.dtype != w.dtype:
+        x, w = x.float(), w.float()
+    if x.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.is_cuda:
         lead = x.shape[:-1]

@@ -24,8 +24,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from prego_tpu.data.features import FeatureStore
-from prego_tpu.metrics.perframe import perframe_average_precision
+from prego_tpu_torch.data.features import FeatureStore
+from prego_tpu_torch.metrics.perframe import perframe_average_precision
 from prego_tpu_torch.core.registry import EVALUATORS
 from prego_tpu_torch.models.miniroad import MiniROAD
 from prego_tpu_torch.ops.gru import gru_scan
@@ -128,7 +128,7 @@ class Evaluator:
         self.metric = cfg["metric"]
         self.logger = logger
         if "THUMOS" in cfg["data_name"]:
-            from prego_tpu.metrics.postprocessing import thumos_postprocessing
+            from prego_tpu_torch.metrics.postprocessing import thumos_postprocessing
 
             self.postprocessing = thumos_postprocessing
         else:

@@ -16,7 +16,7 @@ import torch
 
 from prego_tpu_torch.ops import decode_attention as da
 from prego_tpu_torch.ops import fused_ffn as ffn
-from prego_tpu_torch.ops import gru_cuda
+from prego_tpu_torch.ops import gru_cuda, gru_cuda_vjp
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +33,14 @@ def cuda_device():
 # taken in another order, straddles a bf16 boundary of h: one bf16 ulp
 # (2^-8 relative, |h| < 1) carried on by the recurrence
 GRU_TOL = dict(rtol=0, atol=2.0 ** -6)
+# GRU backward: r depends only on h_prev and xg, so it differs by the
+# f32 summation order of h_prev.W_hh, at most one bf16 ulp (2^-8, r < 1).
+# dxg and dh carry the dh chain: where an f32 sum straddles a bf16 boundary
+# of dHG = [da, db, dc r], one bf16 ulp of dHG (2^-8 relative) enters dh and
+# the chain carries it on, contracted by z and W_hh each frame; measured
+# against the largest value, 2^-6 bounds it over these T
+GRU_BWD_R_TOL = 2.0 ** -7
+GRU_BWD_REL_TOL = 2.0 ** -6
 # decode attention: p is rounded to bf16 against the split's own max, not
 # the row's; each p_t moves by at most 2^-9 relative, the output (a convex
 # combination of |v| < 5) by 2^-9 * 5, plus its own bf16 rounding
@@ -122,3 +130,86 @@ def test_kernels_refuse_what_they_cannot_take(cuda_device):
     xg, h0, w, b = _gru_inputs(cuda_device, 2, 2, 24)
     with pytest.raises(ValueError):
         gru_cuda.gru_recurrence(xg, h0, w, b)  # H not a multiple of 16
+
+
+def _gru_bwd_inputs(device, T, B, H, seed=0):
+    rng = np.random.default_rng(seed)
+    k = 1 / np.sqrt(H)
+    mk = lambda a: torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return (
+        mk(rng.normal(0, 1, (T, B, 3 * H))),  # xg
+        mk(rng.uniform(-0.9, 0.9, (T, B, H))),  # h_prev
+        mk(rng.normal(0, 0.5, (T, B, H))),  # dhs
+        mk(rng.uniform(-k, k, (H, 3 * H))),  # w_hh
+        torch.from_numpy(rng.uniform(-k, k, (3 * H,)).astype(np.float32)).to(device),
+    )
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("T,B,H", [(1, 1, 16), (9, 3, 48), (13, 17, 256), (7, 100, 64),
+                                   (20, 64, 1024), (128, 16, 1024)])
+def test_gru_bwd_kernel_matches_plain(cuda_device, T, B, H):
+    args = _gru_bwd_inputs(cuda_device, T, B, H)
+    before = gru_cuda_vjp.KERNEL.launches
+    dxg, r, dh0 = gru_cuda_vjp.gru_bwd(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda_vjp.KERNEL.launches == before + 1
+    assert dxg.dtype == r.dtype == torch.bfloat16 and dh0.dtype == torch.float32
+    want_dxg, want_r, want_dh0 = gru_cuda_vjp.gru_bwd_reference(*args)
+    assert float((r.float() - want_r.float()).abs().max()) <= GRU_BWD_R_TOL
+    assert _rel_err(dxg, want_dxg) <= GRU_BWD_REL_TOL
+    assert _rel_err(dh0, want_dh0) <= GRU_BWD_REL_TOL
+
+
+def test_gru_bwd_kernel_is_deterministic(cuda_device):
+    args = _gru_bwd_inputs(cuda_device, 33, 24, 1024, seed=2)
+    first = gru_cuda_vjp.gru_bwd(*args)
+    second = gru_cuda_vjp.gru_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gru_bwd_kernel_refuses_what_it_cannot_take(cuda_device):
+    with pytest.raises(ValueError):
+        gru_cuda_vjp.gru_bwd(*_gru_bwd_inputs(cuda_device, 2, 2, 24))  # H not a multiple of 16
+    xg, hp, dhs, w, b = _gru_bwd_inputs(cuda_device, 2, 2, 16)
+    with pytest.raises(ValueError):
+        gru_cuda_vjp.gru_bwd(xg, hp.float(), dhs, w, b)  # f32 h_prev
+    with pytest.raises(RuntimeError):
+        # 256 CTAs of 8 units, each holding 200 KB of W_hh: not resident at once
+        gru_cuda_vjp.gru_bwd(*_gru_bwd_inputs(cuda_device, 2, 2, 2048))
+
+
+def test_gru_trainable_runs_k1_forward_and_k6_backward(cuda_device):
+    """The layer's gradients on the card (bf16 stream) against its f32
+    plain path on the CPU: bf16 streaming of x.W_ih, W_hh and h moves
+    every gradient by a few bf16 ulps of its largest value."""
+    B, T, E, H = 8, 24, 64, 256
+    rng = np.random.default_rng(4)
+    k = 1 / np.sqrt(H)
+    p = {"w_ih": rng.uniform(-k, k, (E, 3 * H)), "b_ih": rng.uniform(-k, k, (3 * H,)),
+         "w_hh": rng.uniform(-k, k, (H, 3 * H)), "b_hh": rng.uniform(-k, k, (3 * H,))}
+    x = rng.normal(0, 1, (B, T, E))
+    w = rng.normal(0, 1, (B, T, H))
+
+    def grads(device, stream):
+        pt = {n: torch.tensor(v, dtype=torch.float32, device=device, requires_grad=True)
+              for n, v in p.items()}
+        xt = torch.tensor(x, dtype=torch.float32, device=device, requires_grad=True)
+        h0 = torch.zeros(B, H, device=device, requires_grad=True)
+        hs, hT = gru_cuda_vjp.gru_trainable(xt, h0, pt, stream_dtype=stream)
+        (torch.sum(hs * torch.tensor(w, dtype=torch.float32, device=device))
+         + 2.0 * torch.sum(hT ** 2)).backward()
+        return [t.grad.cpu() for t in (xt, h0, *pt.values())]
+
+    k1, k6 = gru_cuda.KERNEL.launches, gru_cuda_vjp.KERNEL.launches
+    got = grads(cuda_device, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gru_cuda.KERNEL.launches == k1 + 1 and gru_cuda_vjp.KERNEL.launches == k6 + 1
+    want = grads("cpu", torch.float32)
+    for g, r in zip(got, want):
+        assert _rel_err(g, r) <= 2.0 ** -4

@@ -1,8 +1,8 @@
 """The whole slice at a tiny size, port against prego_tpu: recognition
 eval JSON -> aggregation -> anticipation with the LLaMA backend (greedy,
 the same tiny weights handed over) -> mistake verdicts and metrics. Also
-drives the port's pipeline CLI in a subprocess and checks that it never
-loads jax."""
+drives the port's train and pipeline CLIs in a subprocess and checks that
+they never load jax or any module of the JAX package."""
 
 import json
 import os
@@ -94,19 +94,27 @@ def test_slice_matches_jax(setup, tmp_path):
 
 
 def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):
-    """The port's pipeline CLI end to end (eval -> aggregate -> torch-llama
-    with fabricated tiny weights -> metrics) in a fresh interpreter."""
-    _, cfg_path, ckpt = setup
+    """The port's train CLI (one epoch) and then its pipeline CLI on the
+    trained checkpoint (eval -> aggregate -> torch-llama with fabricated
+    tiny weights -> metrics) in a fresh interpreter: afterwards neither jax
+    nor any module of the JAX package (prego_tpu, prego_tpu.*) is loaded."""
+    _, cfg_path, _ = setup
     workdir = tmp_path / "wd"
     code = (
-        "import sys, json\n"
+        "import glob, sys, json\n"
+        "from prego_tpu_torch.cli.train import main as train\n"
         "from prego_tpu_torch.cli.pipeline import main\n"
-        f"r = main(['--config', {str(cfg_path)!r}, '--ckpt', {str(ckpt)!r},\n"
+        f"train(['--config', {str(cfg_path)!r}, '--output_path', {str(tmp_path / 'out')!r},\n"
+        "       '--device', 'cpu'])\n"
+        f"ckpt, = glob.glob({str(tmp_path / 'out')!r} + '/*/ckpts/best_*.ckpt')\n"
+        f"r = main(['--config', {str(cfg_path)!r}, '--ckpt', ckpt,\n"
         f"          '--workdir', {str(workdir)!r}, '--llm', 'torch-llama',\n"
         "          '--fabricated', 'tiny', '--dataset', 'synthcustom',\n"
         f"          '--data_root', {str(tmp_path)!r}, '--max_gen_len', '4', '--device', 'cpu'])\n"
         "assert r.metrics is not None\n"
-        "print(json.dumps({'jax_loaded': 'jax' in sys.modules, 'samples': r.metrics['samples']}))\n"
+        "jax_pkg = sorted(m for m in sys.modules if m == 'prego_tpu' or m.startswith('prego_tpu.'))\n"
+        "print(json.dumps({'jax_loaded': 'jax' in sys.modules, 'jax_package': jax_pkg,\n"
+        "                  'samples': r.metrics['samples']}))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     env.pop("PREGO_PLATFORM", None)  # the JAX package would import jax for it
@@ -115,12 +123,14 @@ def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["jax_loaded"] is False
+    assert report["jax_package"] == []
     agg = json.loads((workdir / "aggregated.json").read_text())
     assert report["samples"] == sum(len(v["pred"]) for v in agg.values())
     assert (workdir / "results").exists()
 
 
 def test_training_is_refused_with_the_roadmap_item(setup):
+    """Recognition training is ported; the ANTICIPATION task's is not (M9)."""
     _, cfg_path, _ = setup
-    with pytest.raises(NotImplementedError, match="M8"):
-        train_main(["--config", str(cfg_path)])
+    with pytest.raises(NotImplementedError, match="M9"):
+        train_main(["--config", str(cfg_path), "--device", "cpu", "--task", "ANTICIPATION"])
