@@ -2,16 +2,19 @@
 
   python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the four
-   CUDA kernels of the path from prego_tpu_torch/csrc with nvcc (one nvcc
-   per source, all started together), and holds each against its plain
-   PyTorch version at the shapes the main path gives it, in bf16, timing
-   both with CUDA events, beside its roofline bound and, where one PyTorch
-   call computes the same function, that call's time. The cuDNN GRU layer
-   is timed beside the trainable GRU layer as a yardstick.
+1. Prints the card (nvidia-smi name and power limit), builds the seven
+   CUDA kernels of the paths from prego_tpu_torch/csrc with nvcc (one nvcc
+   per library, all started together), and holds each against its plain
+   PyTorch version at the shapes the main path gives it, in bf16 (int8
+   for the quantized kernels), timing both with CUDA events, beside its
+   roofline bound and, where one PyTorch call computes the same function,
+   that call's time. The cuDNN GRU layer is timed beside the trainable GRU
+   layer as a yardstick.
 2. Checks the port against its f32 CPU path: MiniROAD eval at full width
    on two video prefixes, one MiniROAD train step at full width (K1 + K6,
-   bf16 stream, dropout 0) on 16 windows, and a 2-layer LLaMA at 7B width.
+   bf16 stream, dropout 0) on 16 windows, and a 2-layer LLaMA at 7B width
+   in bf16, with int8 weights and an int8 KV cache, and with int8 x int8
+   projections.
 3. Drives the main path once, through the functions the CLIs call:
    synthetic Assembly101-O-shaped videos (2048-wide rgb features, 86
    classes, a train and a test split) -> MiniROAD training for 2 epochs at
@@ -20,12 +23,16 @@
    each epoch and keeping the best checkpoint -> recognition eval of that
    checkpoint with the JSON export -> TI-PREGO aggregation -> anticipation
    with torch-llama at LLaMA-2-7B shape (bf16, random weights from a seed,
-   byte tokenizer) -> one-class verdicts and metrics. Every kernel's launch
+   byte tokenizer) -> one-class verdicts and metrics; then anticipation
+   twice more over the same aggregated sequences, at 7B with
+   --quantize int8 --kv_quant (K4, K3) and with --quantize int8x8 (K5,
+   K2), int8 weights drawn directly from a seed. Every kernel's launch
    count is reset just before this run and must be above 0 after it; the
    trained checkpoint's mAP must beat the untrained model's, and the
    training loss must fall.
 4. Times train steps (host clock, and the device busy share of a few under
-   torch.profiler) and 7B decode steps at batch 1 and 8.
+   torch.profiler) and 7B decode steps at batch 1 and 8 in the three modes
+   (at batch 1 with the device busy share too).
 
 TF32 is off for matmuls and cuDNN, so f32 products are full f32. Any
 failure raises (non-zero exit). The last line is the JSON device record;
@@ -53,6 +60,10 @@ KERNEL_INFO = {
     "decode_attention": ("prego_tpu_torch/csrc/decode_attention.cu",
                          "prego_tpu/ops/decode_attention.py:728"),
     "fused_ffn_block": ("prego_tpu_torch/csrc/fused_ffn.cu", "prego_tpu/ops/fused_ffn.py:131"),
+    "decode_attention_q8": ("prego_tpu_torch/csrc/decode_attention_q8.cu",
+                            "prego_tpu/ops/decode_attention.py:1372"),
+    "int8_matmul": ("prego_tpu_torch/csrc/int8_matmul.cu", "prego_tpu/ops/quant.py:80"),
+    "int8xint8_matmul": ("prego_tpu_torch/csrc/int8_matmul.cu", "prego_tpu/ops/quant.py:169"),
 }
 # stated tolerances, kernel vs plain version, both bf16 on the card:
 TOL = {
@@ -69,10 +80,25 @@ TOL = {
     # the bf16 output h + y (|out| < 8) rounds one ulp apart when the f32
     # sums over F = 11008 products are taken in another order
     "fused_ffn_block": 2.0 ** -4,
+    # as K2: pv = bf16(p * v_scale) rounded against the split's max, not
+    # the row's: 2^-9 x |v| (< 5) plus the output's own bf16 rounding
+    "decode_attention_q8": 2.0 ** -5,
+    # exact bf16 x int8 products; f32 sums of up to 11008 of them in
+    # another order than cuBLAS's (|y| < 8): a few f32 ulps of the partial
+    # sums, far inside 2^-12
+    "int8_matmul": 2.0 ** -12,
+    # exact int32 sums rounded once to f32 and scaled in the same order on
+    # both sides: equal, allowed one ulp (2^-21 at |y| < 8)
+    "int8xint8_matmul": 2.0 ** -20,
 }
-# the card's published peaks (H100 SXM, dense): bf16 tensor cores, HBM
+# the card's published peaks (H100 SXM, dense): bf16 and int8 tensor
+# cores, HBM
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# 7B projections (K, N) at decode: wqkv, wo, w13, w2 and the lm-head
+PROJ_7B = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
+           "w2": (11008, 4096), "lm_head": (4096, 32000)}
 
 
 def log(msg):
@@ -93,6 +119,19 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def time_ms_cycle(fn, arg_sets, iters, warmup=2):
+    """``time_ms`` of ``fn`` over ``arg_sets`` in turn: with more bytes in
+    the sets than the card's 50 MB L2 holds, every call reads its inputs
+    from device memory, as a decode step reads each layer's weights."""
+    i = iter(range(10 ** 9))
+    return time_ms(lambda: fn(*arg_sets[next(i) % len(arg_sets)]), iters, warmup)
+
+
+def copies_past_l2(make, nbytes_one, at_least=2):
+    """Input sets made by ``make()`` until together they pass 100 MB."""
+    return [make() for _ in range(max(at_least, math.ceil(100e6 / nbytes_one)))]
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -101,10 +140,11 @@ def rel_err(a, b):
     return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """The least time the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    over the tensor-core peak of their type (bf16 unless ``peak`` says)
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -250,6 +290,129 @@ def check_kernels(dev):
     return rows
 
 
+def check_quant_kernels(dev):
+    """K3, K4 and K5 against their plain versions at the 7B serving
+    shapes; inputs cycle through copies that pass the L2 cache. Returns
+    the kernels' rows and every case."""
+    from prego_tpu_torch.models.llama.model import _kv_dequant, _kv_quantize
+    from prego_tpu_torch.ops import decode_attention as da
+    from prego_tpu_torch.ops import decode_attention_q8 as da8
+    from prego_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, cases = {}, {"decode_attention_q8": [], "int8_matmul": [], "int8xint8_matmul": []}
+
+    # K3: K2's cases (B 8, hd 128, T 512, the same ragged bounds) over an
+    # int8 cache; the library call and K2 run on the dequantized bf16 cache
+    valid = torch.tensor([0, 512, 1, 77, 255, 256, 300, 511], dtype=torch.int32, device=dev)
+    used = int(valid.sum())
+    mask = (torch.arange(512, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+    for KV, R in ((32, 1), (8, 4)):
+        def make():
+            q = torch.randn(8, KV, R, 128, device=dev, generator=gen).to(bf16)
+            kq, ks = _kv_quantize(torch.randn(8, KV, 512, 128, device=dev, generator=gen))
+            vq, vs = _kv_quantize(torch.randn(8, KV, 512, 128, device=dev, generator=gen))
+            return q, kq, ks, vq, vs
+        sets = copies_past_l2(make, 2 * 8 * KV * 512 * 132)
+        deq = [(a[0], _kv_dequant({"q": a[1], "s": a[2]}, bf16),
+                _kv_dequant({"q": a[3], "s": a[4]}, bf16)) for a in sets]
+        out = da8.decode_attention_q8(*sets[0], valid)
+        ref = da8.decode_attention_q8_reference(*sets[0], valid)
+        if not torch.all(out[0] == 0):
+            raise AssertionError("decode_attention_q8: valid_len 0 must give zeros")
+        case = dict(
+            R=R, KV=KV, max_abs_err=max_err(out, ref),
+            ms=time_ms_cycle(lambda *a: da8.decode_attention_q8(*a, valid), sets, 50),
+            plain_ms=time_ms_cycle(lambda *a: da8.decode_attention_q8_reference(*a, valid),
+                                   sets, 20),
+            # int8 K and V below the bounds and their f32 scales, read once
+            **bound(2 * 2 * used * KV * R * 128,
+                    2 * used * KV * (128 + 4) + nbytes(sets[0][0], valid, out)),
+            library_ms=time_ms_cycle(lambda q, k, v: sdpa(q, k, v, attn_mask=mask), deq, 50),
+            k2_bf16_ms=time_ms_cycle(lambda q, k, v: da.decode_attention(q, k, v, valid), deq, 50),
+        )
+        cases["decode_attention_q8"].append(case)
+        log_case("decode_attention_q8", f"B=8 KV={KV} R={R} T=512", case)
+        log(f"  K2 on the dequantized bf16 cache, same bounds: {case['k2_bf16_ms']:.4f} ms")
+
+    # K4 and K5 at the 7B projections, decode M 1 and 8, and one prefill
+    # shape (M 512 on w13); the library calls: torch.mm on weights
+    # dequantized to bf16 beforehand, torch._int_mm and the two scales
+    shapes = [(M, name, K, N) for M in (1, 8) for name, (K, N) in PROJ_7B.items()]
+    shapes.append((512, "w13", *PROJ_7B["w13"]))
+    for M, name, K, N in shapes:
+        def make():
+            x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
+            q, s = quant.quantize_weight(torch.randn(K, N, device=dev, generator=gen) * K ** -0.5)
+            xq, xs = quant.quantize_activations(x)
+            return x, q, s, xq, xs
+        sets = copies_past_l2(make, K * N)
+        x, q, s, xq, xs = sets[0]
+        w8 = [(a[0], a[1], a[2]) for a in sets]
+        w8a8 = [(a[3], a[4], a[1], a[2]) for a in sets]
+        iters = 20 if M > 8 else 50
+        y = quant.int8_matmul(x, q, s)
+        wd = [(a[0], (a[1].float() * a[2]).to(bf16)) for a in sets]
+        case = dict(
+            M=M, proj=name, max_abs_err=max_err(y, quant.int8_matmul_reference(x, q, s)),
+            ms=time_ms_cycle(quant.int8_matmul, w8, iters),
+            plain_ms=time_ms_cycle(quant.int8_matmul_reference, w8, iters),
+            **bound(2 * M * K * N, nbytes(x, q, s, y)),
+            library_ms=time_ms_cycle(lambda a, w: torch.mm(a, w, out_dtype=torch.float32), wd,
+                                     iters),
+        )
+        cases["int8_matmul"].append(case)
+        log_case("int8_matmul", f"{name} M={M} K={K} N={N}", case)
+
+        y8 = quant.int8xint8_matmul(xq, xs, q, s)
+        # torch._int_mm takes more than 16 rows: fewer are padded to 32
+        pad = max(0, 32 - M) if M <= 16 else 0
+        lib = [(torch.cat([a[3], a[3].new_zeros(pad, K)]), torch.cat([a[4], a[4].new_ones(pad, 1)]),
+                a[1], a[2]) for a in sets]
+        try:
+            lib_ms = time_ms_cycle(lambda a, sa, w, sw: torch._int_mm(a, w).float() * sa * sw[0],
+                                   lib, iters)
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            log(f"  torch._int_mm refused {name} M={M}: {str(e).splitlines()[0]}")
+            lib_ms = None
+        case = dict(
+            M=M, proj=name, rows_padded_for_library=pad,
+            max_abs_err=max_err(y8, quant.int8xint8_matmul_reference(xq, xs, q, s)),
+            ms=time_ms_cycle(quant.int8xint8_matmul, w8a8, iters),
+            plain_ms=time_ms_cycle(quant.int8xint8_matmul_reference, w8a8, max(iters // 5, 3)),
+            **bound(2 * M * K * N, nbytes(xq, xs, q, s, y8), PEAK_INT8_OPS),
+            library_ms=lib_ms,
+        )
+        cases["int8xint8_matmul"].append(case)
+        log_case("int8xint8_matmul", f"{name} M={M} K={K} N={N}", case,
+                 f"; library rows padded to {M + pad}" if pad else "")
+
+    rows["decode_attention_q8"] = {
+        k: v for k, v in cases["decode_attention_q8"][0].items()
+        if k not in ("R", "KV", "k2_bf16_ms")}
+    rows["decode_attention_q8"]["max_abs_err"] = max(
+        c["max_abs_err"] for c in cases["decode_attention_q8"])
+    # K4 and K5's rows: one decode step's projections of a layer and the
+    # lm-head at M 1, summed; max_abs_err over every case
+    for name in ("int8_matmul", "int8xint8_matmul"):
+        step = [c for c in cases[name] if c["M"] == 1]
+        lib = [c["library_ms"] for c in step]
+        rows[name] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+            ms=sum(c["ms"] for c in step), plain_ms=sum(c["plain_ms"] for c in step),
+            bound_ms=sum(c["bound_ms"] for c in step),
+            bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step) else "operations",
+            library_ms=None if None in lib else sum(lib),
+        )
+    for name, row in rows.items():
+        if not row["max_abs_err"] <= TOL[name]:
+            raise AssertionError(f"{name}: max_abs_err {row['max_abs_err']} > {TOL[name]}")
+    return rows, cases
+
+
 def gru_layer_yardstick(dev):
     """The trainable GRU layer (K1 forward, K6 backward) beside cuDNN's GRU
     layer, both at the training shape and both including the input
@@ -374,6 +537,18 @@ def check_train_step(dev):
     return {"train_step_vs_plain_bf16": worst["cpu_bf16"], "train_step_vs_f32": worst["cpu_f32"]}
 
 
+def llama_to_cpu(tree, f32):
+    """A copy of a LLaMA parameter tree on the CPU; ``f32`` widens its bf16
+    leaves (int8 values and f32 scales stay as they are)."""
+    if isinstance(tree, dict):
+        return {k: llama_to_cpu(v, f32) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [llama_to_cpu(v, f32) for v in tree]
+    if isinstance(tree, tuple):  # the int8 x int8 marker
+        return tree
+    return tree.float().cpu() if f32 and tree.dtype == torch.bfloat16 else tree.cpu()
+
+
 def check_against_cpu(dev):
     from prego_tpu_torch.core import RecognitionConfig
     from prego_tpu_torch.core.seed import make_generator
@@ -403,20 +578,7 @@ def check_against_cpu(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     p_dev = fuse_projections(init_params(cfg, gen, dtype=torch.bfloat16, device=dev))
-    p_cpu = {
-        "tok_embeddings": p_dev["tok_embeddings"].float().cpu(),
-        "norm": p_dev["norm"].float().cpu(),
-        "output": p_dev["output"].float().cpu(),
-        "layers": [
-            {
-                "attention": {k: v.float().cpu() for k, v in l["attention"].items()},
-                "feed_forward": {k: v.float().cpu() for k, v in l["feed_forward"].items()},
-                "attention_norm": l["attention_norm"].float().cpu(),
-                "ffn_norm": l["ffn_norm"].float().cpu(),
-            }
-            for l in p_dev["layers"]
-        ],
-    }
+    p_cpu = llama_to_cpu(p_dev, f32=True)
     toks = torch.from_numpy(rng.integers(0, 256, (2, 20))).long()
     c_dev = init_cache(cfg, 2, torch.bfloat16, dev)
     c_cpu = init_cache(cfg, 2, torch.float32, "cpu")
@@ -430,8 +592,72 @@ def check_against_cpu(dev):
         f"max |d logit| / max |logit| {worst:.3e} (tol 3e-2)")
     if not worst <= 3e-2:
         raise AssertionError("LLaMA on the card disagrees with the CPU f32 path")
+    quantized = check_llama_quantized(cfg, dev, toks)
     return {"miniroad_max_prob_err": rec_err, "miniroad_argmax_agreement": agree,
-            "llama_rel_logit_err": worst, **train}
+            "llama_rel_logit_err": worst, **quantized, **train}
+
+
+def check_llama_quantized(cfg, dev, toks):
+    """The 2-layer LLaMA at 7B width with int8 weights drawn on the card:
+    int8 weights and an int8 KV cache (K4, K3), and int8 x int8
+    projections over a bf16 cache (K5, K2), on the card in bf16 against
+    the port's CPU path with the same int8 parameters (the kernels' plain
+    versions): in the same bf16 walk, and in f32."""
+    from prego_tpu_torch.models.llama.model import (
+        forward, init_cache, init_params_quantized, mark_activations,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    p_dev = init_params_quantized(cfg, gen, fused=True, dtype=torch.bfloat16, device=dev)
+
+    walks = {"card": (p_dev, dev, torch.bfloat16),
+             "cpu_bf16": (llama_to_cpu(p_dev, f32=False), "cpu", torch.bfloat16),
+             "cpu_f32": (llama_to_cpu(p_dev, f32=True), "cpu", torch.float32)}
+    out = {}
+    # Tolerances on max |d logit| / max |logit|. The same bf16 walk differs
+    # from the card only in the order of f32 sums and in K2/K3's pv
+    # rounding against a split's max; f32 differs by bf16 streaming (2^-9)
+    # and the int8 KV cache requantizes K/V from bf16 inputs: 3e-2 for both,
+    # the bf16 model's bar against f32. Under int8x8 every projection
+    # quantizes its input per row, scaled by the row's largest |value|:
+    # where the two walks round that value one bf16 ulp apart, even in the
+    # same walk, the scale moves and about half of the row's int8 codes
+    # move one step, so the logits differ by a fresh draw of the activation
+    # quantization noise (its int8 rounding, 1/127 of the row's max, is up
+    # to ~1% of a projection a layer). Bound by 1e-1, and the greedy token
+    # must agree wherever the f32 top-2 margin passes a quarter of the
+    # logits' spread, as tests/test_llama.py asks. (The CPU alone, its bf16
+    # walk against its f32 walk on these int8 weights at 2 layers, differs
+    # by 3.7e-2, 4.2e-2 and 4.4e-2 at widths 256, 1024 and 2048.)
+    for mode, act, kv_quant, tol in (("int8_kv8", False, True, 3e-2),
+                                     ("int8x8", True, False, 1e-1)):
+        logits = {}
+        for walk, (params, device, dtype) in walks.items():
+            params = mark_activations(params, act)
+            cache = init_cache(cfg, 2, dtype, device, quantized=kv_quant)
+            steps = []
+            for pos, chunk in ((0, toks[:, :16]), (16, toks[:, 16:17]), (17, toks[:, 17:18]),
+                               (18, toks[:, 18:19])):
+                lg, cache = forward(params, chunk.to(device), pos, cache, cfg)
+                steps.append(lg.float().cpu())
+            logits[walk] = torch.cat(steps, dim=1)
+        ref = logits["cpu_f32"]
+        same = max_err(logits["card"], logits["cpu_bf16"]) / float(logits["cpu_bf16"].abs().max())
+        f32 = max_err(logits["card"], ref) / float(ref.abs().max())
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) / float(ref.std()) > 0.25
+        agree = (logits["card"].argmax(-1) == ref.argmax(-1))[clear]
+        log(f"LLaMA 7B width x 2 layers, {mode}, card vs CPU on the same int8 weights, prefill "
+            f"16 + 3 decode steps: max |d logit| / max |logit| {same:.3e} against the same bf16 "
+            f"walk, {f32:.3e} against f32 (tol {tol} each); greedy agreement where the margin "
+            f"is clear {int(agree.sum())} of {int(clear.sum())} (all)")
+        if not (same <= tol and f32 <= tol and bool(agree.all())):
+            raise AssertionError(f"LLaMA {mode} on the card disagrees with the CPU path")
+        out[f"llama_{mode}"] = {"rel_logit_err_same_walk": same, "rel_logit_err_f32": f32,
+                                "greedy_clear": int(clear.sum()),
+                                "greedy_clear_agree": int(agree.sum())}
+    return out
 
 
 # ---- 3. the main path ----
@@ -527,17 +753,25 @@ def run_main_path(dev):
     cfg = RecognitionConfig.from_dict(recognition_config(data, video_list))
     before = untrained_mAP(cfg, dev)
     agg_path = WORK / "pipeline" / "aggregated.json"
-    ant_args = anticipate.parse_args([
+    ant_args_list = [
         "--llm", "torch-llama", "--fabricated", "7b", "--dataset", "synthcustom",
         "--seqs", str(agg_path), "--results_root", str(WORK / "pipeline" / "results"),
         "--device", str(dev),
-    ])
+    ]
+    ant_args = anticipate.parse_args(ant_args_list)
+    # the quantized modes over the same aggregated sequences
+    mode_args = {mode: anticipate.parse_args([*ant_args_list, *flags]) for mode, flags in
+                 (("int8_kv8", ["--quantize", "int8", "--kv_quant"]),
+                  ("int8x8", ["--quantize", "int8x8"]))}
     t_llm = time.perf_counter()
     llm = anticipate.make_llm(ant_args)  # 7B bf16 weights from a seed
     torch.cuda.synchronize()
+    t_q = time.perf_counter()
+    qllms = {mode: anticipate.make_llm(a) for mode, a in mode_args.items()}  # int8, drawn directly
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     log(f"set-up {setup_s:.1f}s: data, untrained mAP {before:.4f}, "
-        f"7B weights ({time.perf_counter() - t_llm:.1f}s)")
+        f"7B bf16 weights ({t_q - t_llm:.1f}s), two 7B int8 trees ({time.perf_counter() - t_q:.1f}s)")
 
     for k in kernels().values():
         k.launches = 0
@@ -553,18 +787,27 @@ def run_main_path(dev):
     result = anticipate.run(ant_args, llm=llm)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
+    modes = {}
+    for mode, args in mode_args.items():
+        qllm = qllms[mode]
+        t_m = time.perf_counter()
+        res = anticipate.run(args, llm=qllm)
+        torch.cuda.synchronize()
+        modes[mode] = (res, time.perf_counter() - t_m, qllm.llama.decode_steps)
     launches = {name: k.launches for name, k in kernels().items()}
 
     raw = json.loads((WORK / "pipeline" / "perframe_predictions.json").read_text())
     check_perframe(raw, lengths)
     if set(agg) != set(raw) or any(len(a["pred"]) != len(a["changes_pred"]) for a in agg.values()):
         raise AssertionError("aggregated sequences malformed")
-    m = result.metrics
     n_steps = sum(len(a["pred"]) for a in agg.values())
-    if m is None or m["samples"] != n_steps or not 0.0 <= m["accuracy"] <= 1.0:
-        raise AssertionError(f"anticipation metrics malformed: {m}")
-    if set(result.preds) != set(agg) or not all(isinstance(p, set) for v in result.preds.values() for p in v):
-        raise AssertionError("anticipated sets malformed")
+    for mode, res in (("bf16", result), *((k, v[0]) for k, v in modes.items())):
+        m = res.metrics
+        if m is None or m["samples"] != n_steps or not 0.0 <= m["accuracy"] <= 1.0:
+            raise AssertionError(f"anticipation metrics malformed ({mode}): {m}")
+        if set(res.preds) != set(agg) or not all(isinstance(p, set) for v in res.preds.values() for p in v):
+            raise AssertionError(f"anticipated sets malformed ({mode})")
+    m = result.metrics
     if not all(math.isfinite(x) for x in trained.epoch_losses + [rec["mean_AP"]]):
         raise AssertionError("a training loss or the recognition mAP is not finite")
     if trained.ckpt_path is None or abs(rec["mean_AP"] - trained.best_mAP) > 1e-6:
@@ -586,12 +829,19 @@ def run_main_path(dev):
         "untrained_mAP": before, "recognition_mAP": rec["mean_AP"],
         "recognition_s": t3 - t2, "recognition_fps": rec["fps"],
         "anticipation_s": t4 - t3, "llm_calls": len(result.llm_latencies),
+        "s_per_llm_call": (t4 - t3) / max(len(result.llm_latencies), 1),
         "decode_steps": llm.llama.decode_steps - steps_before, "steps_anticipated": n_steps,
         "verdict_metrics": {k: m[k] for k in ("samples", "tp", "fp", "fn", "tn", "accuracy", "f1")},
+        "quantized_modes": {
+            mode: {"anticipation_s": wall, "llm_calls": len(res.llm_latencies),
+                   "s_per_llm_call": wall / max(len(res.llm_latencies), 1),
+                   "decode_steps": steps,
+                   "verdict_metrics": {k: res.metrics[k] for k in ("samples", "accuracy", "f1")}}
+            for mode, (res, wall, steps) in modes.items()},
         "launches": launches,
     }
     log(f"main path: {json.dumps(report)}")
-    return llm, cfg, launches, report
+    return {"bf16": llm, **qllms}, cfg, launches, report
 
 
 # ---- 4. train step and decode step times ----
@@ -653,42 +903,62 @@ def train_step_ms(cfg, dev, n_timed=20, n_profiled=5):
     for i in range(n_timed):
         one(i)
     ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    prof_ms, busy, top = profile_steps(one, n_profiled)
+    log(f"train step (B 16, window 128, full width, K1 + K6): {ms:.3f} ms host clock over "
+        f"{n_timed} steps; under the profiler {prof_ms:.3f} ms/step, device busy "
+        f"{'not measured' if busy is None else f'{busy:.3f}'}; device ms/step by op: "
+        f"{json.dumps({k[:60]: round(v, 4) for k, v in top.items()})}")
+    return {"train_step_ms": ms, "train_step_profiled_ms": prof_ms,
+            "train_step_device_busy": busy, "train_step_top_device_ms": top}
+
+
+def profile_steps(step, n):
+    """``step(i)`` for i < n under torch.profiler: host-clock ms a step, the
+    device busy share, and the device ms a step of the 8 costliest ops."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for i in range(n_profiled):
-            one(i)
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = _busy_share(prof, wall)
     by_kernel = {}
     for e in prof.key_averages():  # the device's own entries: kernels, copies, sets
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dt = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
         if dt > 0:
-            by_kernel[e.key] = dt / 1e3 / n_profiled
+            by_kernel[e.key] = dt / 1e3 / n
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
-    log(f"train step (B 16, window 128, full width, K1 + K6): {ms:.3f} ms host clock over "
-        f"{n_timed} steps; under the profiler {wall / n_profiled:.3f} ms/step, device busy "
-        f"{'not measured' if busy is None else f'{busy:.3f}'}; device ms/step by op: "
-        f"{json.dumps({k[:60]: round(v, 4) for k, v in top.items()})}")
-    return {"train_step_ms": ms, "train_step_profiled_ms": wall / n_profiled,
-            "train_step_device_busy": busy, "train_step_top_device_ms": top}
+    return wall / n, _busy_share(prof, wall), top
 
 
 @torch.no_grad()
-def decode_step_ms(llm, dev):
+def decode_step_ms(llms, dev):
+    """ms per 7B decode step at B 1 and 8, at position 128, for each mode;
+    at B 1 also the device busy share and the costliest device ops of a
+    few steps under torch.profiler."""
     from prego_tpu_torch.models.llama.model import forward, init_cache
 
-    lm = llm.llama
     out = {}
-    for B in (1, 8):
-        cache = init_cache(lm.config, B, lm.dtype, dev)
-        toks = torch.randint(0, 256, (B, 128), device=dev)
-        forward(lm.params, toks, 0, cache, lm.config, lm.rope)  # 128 positions filled
-        nxt = toks[:, -1:]
-        out[B] = time_ms(lambda: forward(lm.params, nxt, 128, cache, lm.config, lm.rope), 20)
-        log(f"7B bf16 decode step, B={B}, at position 128: {out[B]:.3f} ms")
+    for mode, llm in llms.items():
+        lm = llm.llama
+        for B in (1, 8):
+            cache = init_cache(lm.config, B, lm.dtype, dev, quantized=lm.kv_quant)
+            toks = torch.randint(0, 256, (B, 128), device=dev)
+            forward(lm.params, toks, 0, cache, lm.config, lm.rope)  # 128 positions filled
+            nxt = toks[:, -1:]
+            step = lambda *_: forward(lm.params, nxt, 128, cache, lm.config, lm.rope)
+            ms = time_ms(step, 20)
+            out[f"{mode}_b{B}"] = ms
+            log(f"7B {mode} decode step, B={B}, at position 128: {ms:.3f} ms")
+            if B == 1:
+                prof_ms, busy, top = profile_steps(step, 5)
+                out[f"{mode}_b1_profiled"] = {"ms": prof_ms, "device_busy": busy,
+                                              "top_device_ms": top}
+                log(f"  under the profiler {prof_ms:.3f} ms/step, device busy "
+                    f"{'not measured' if busy is None else f'{busy:.3f}'}; device ms/step by op: "
+                    f"{json.dumps({k[:60]: round(v, 4) for k, v in top.items()})}")
     return out
 
 
@@ -705,11 +975,13 @@ def main():
 
     build_kernels()
     rows = check_kernels(dev)
+    q_rows, q_cases = check_quant_kernels(dev)
+    rows.update(q_rows)
     layer = gru_layer_yardstick(dev)
     cpu = check_against_cpu(dev)
-    llm, cfg, launches, report = run_main_path(dev)
+    llms, cfg, launches, report = run_main_path(dev)
     train = train_step_ms(cfg, dev)
-    decode = decode_step_ms(llm, dev)
+    decode = decode_step_ms(llms, dev)
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
     jax_package = sorted(m for m in sys.modules if m == "prego_tpu" or m.startswith("prego_tpu."))
@@ -717,7 +989,8 @@ def main():
         raise AssertionError(f"the port loaded modules of the JAX package: {jax_package}")
 
     log(json.dumps({"summary": {**report, "cpu_checks": cpu, "gru_layer": layer, **train,
-                                "decode_ms_per_step": {str(b): v for b, v in decode.items()},
+                                "quant_kernel_cases": q_cases,
+                                "decode_ms_per_step": decode,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
                                 "total_s": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": [

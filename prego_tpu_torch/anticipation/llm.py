@@ -6,7 +6,9 @@ stripped (llama/generation.py:233-282). Here:
 
   * FakeLLM: the deterministic next-symbol oracle for hermetic runs;
   * TorchLlamaLLM (``torch-llama``): the port's LLaMA decoder on one
-    device, in the single-card fused layout (wqkv, w13), bf16 on the card.
+    device, in the single-card fused layout (wqkv, w13), bf16 on the card;
+    ``quantize="int8"`` serves int8 weights (K4), ``"int8x8"`` int8 weights
+    and per-token int8 activations (K5), ``kv_quant`` an int8 KV cache (K3).
 
 Loading a Meta or HF checkpoint needs a converter that imports no jax;
 until it exists (ROADMAP) TorchLlamaLLM takes random weights at a
@@ -99,10 +101,20 @@ class TorchLlamaLLM:
         params=None,  # the port's parameter dict (checkpoint/bridge.py)
         config=None,  # its LlamaConfig, required with params
         device: str = "cuda",  # raises where there is no card; "cpu" on request
+        quantize=False,  # False | True/"int8" (weight-only) | "int8x8" (int8 x int8)
+        kv_quant: bool = False,  # int8 KV cache
     ):
         from prego_tpu_torch.models.llama import ByteTokenizer, Llama, load_tokenizer
-        from prego_tpu_torch.models.llama.model import fuse_projections, init_params
+        from prego_tpu_torch.models.llama.model import (
+            fuse_projections, init_params, init_params_quantized, is_quantized,
+            mark_activations, quantize_params,
+        )
 
+        if quantize is True:
+            quantize = "int8"
+        if quantize not in (False, "int8", "int8x8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} (False|'int8'|'int8x8')")
+        act_quant = quantize == "int8x8"
         device = resolve_device(device)
         # bf16 is the serving dtype on the card; the CPU path runs f32, as
         # the JAX package does off the TPU
@@ -113,17 +125,27 @@ class TorchLlamaLLM:
                 raise ValueError("params= needs config=")
             if "wqkv" not in params["layers"][0]["attention"]:
                 params = fuse_projections(params)
+            if is_quantized(params["output"]):
+                # an int8 tree runs as given, its marker set by ``quantize``
+                if quantize:
+                    params = mark_activations(params, act_quant)
+            elif quantize:
+                params = quantize_params(params, activations=act_quant)
         elif fabricated is not None:
             config = fabricated_config(fabricated, max_seq_len, max_batch_size)
             gen = torch.Generator(device=device)
             gen.manual_seed(0)
-            params = fuse_projections(init_params(config, gen, dtype=dtype, device=device))
+            if quantize:  # int8 drawn directly: no bf16 model first
+                params = init_params_quantized(config, gen, fused=True, dtype=dtype,
+                                               device=device, activations=act_quant)
+            else:
+                params = fuse_projections(init_params(config, gen, dtype=dtype, device=device))
         else:
             raise NotImplementedError(
                 f"loading {ckpt_dir!r}: converting a Meta/HF checkpoint without jax "
                 "is not ported yet (ROADMAP); use fabricated= or params="
             )
-        self.llama = Llama(params, tokenizer, config)
+        self.llama = Llama(params, tokenizer, config, kv_quant=kv_quant)
 
     def text_completion(
         self,

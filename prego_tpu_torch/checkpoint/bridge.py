@@ -9,7 +9,11 @@ Covered trees:
   * MiniROAD (``prego_tpu/models/miniroad.py:69-84``): embed, ln, cls, gru;
   * LLaMA (``prego_tpu/models/llama/model.py:41-78``) unfused
     (wq/wk/wv/wo, w1/w2/w3) and after ``fuse_projections``
-    (wqkv/wo, w13/w2).
+    (wqkv/wo, w13/w2), bf16/f32 or quantized (``quantize_params``,
+    ``init_params_quantized``): a quantized projection is
+    ``{"q": int8, "s": f32 (1, N)}``, plus the empty-tuple marker ``"act"``
+    for int8 x int8 projections. ``q`` stays int8 and ``s`` f32 whatever
+    ``dtype`` asks, and the marker stays an empty tuple both ways.
 
 bf16 leaves cross bit-exactly: numpy's ml_dtypes bfloat16 is viewed as
 uint16 and reinterpreted on the torch side.
@@ -38,6 +42,7 @@ _GRU_KEYS = {"w_ih", "b_ih", "w_hh", "b_hh"}
 _LLAMA_KEYS = {"tok_embeddings", "layers", "norm", "output"}
 _ATTN_KEYS = ({"wq", "wk", "wv", "wo"}, {"wqkv", "wo"})
 _FFN_KEYS = ({"w1", "w2", "w3"}, {"w13", "w2"})
+_QUANT_KEYS = ({"q", "s"}, {"q", "s", "act"})
 
 
 def to_tensor(x, device="cpu", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -58,11 +63,18 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(tree, fn):
+def _map(tree, fn, quant_fn=None):
+    """``fn`` on every leaf; ``quant_fn`` instead on each quantized
+    projection {"q", "s"[, "act"]}, where one is given. An empty tuple (the
+    quantization marker, no leaf) stays an empty tuple."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        if quant_fn is not None and "q" in tree:
+            return quant_fn(tree)
+        return {k: _map(v, fn, quant_fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and not tree:
+        return ()
     if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
+        return [_map(v, fn, quant_fn) for v in tree]
     return fn(tree)
 
 
@@ -91,6 +103,12 @@ def check_llama_tree(params: Dict[str, Any]) -> None:
         )
         _check_keys(layer["attention"], _ATTN_KEYS, f"llama.layers[{i}].attention")
         _check_keys(layer["feed_forward"], _FFN_KEYS, f"llama.layers[{i}].feed_forward")
+        for block in ("attention", "feed_forward"):
+            for name, leaf in layer[block].items():
+                if isinstance(leaf, dict):
+                    _check_keys(leaf, _QUANT_KEYS, f"llama.layers[{i}].{block}.{name}")
+    if isinstance(params["output"], dict):
+        _check_keys(params["output"], _QUANT_KEYS, "llama.output")
 
 
 def miniroad_from_numpy(params, device="cpu", dtype: Optional[torch.dtype] = None):
@@ -99,15 +117,23 @@ def miniroad_from_numpy(params, device="cpu", dtype: Optional[torch.dtype] = Non
     return _map(params, lambda a: to_tensor(a, device, dtype))
 
 
+def _quant_leaf(leaf, fn):
+    out = {"q": fn(leaf["q"]), "s": fn(leaf["s"])}
+    return {**out, "act": ()} if "act" in leaf else out
+
+
 def llama_from_numpy(params, device="cpu", dtype: Optional[torch.dtype] = None):
-    """JAX LLaMA pytree, unfused or fused (numpy leaves) -> tensor dict."""
+    """JAX LLaMA pytree, unfused or fused, bf16/f32 or quantized (numpy
+    leaves) -> tensor dict; ``dtype`` applies to the float leaves outside
+    the quantized projections."""
     check_llama_tree(params)
-    return _map(params, lambda a: to_tensor(a, device, dtype))
+    return _map(params, lambda a: to_tensor(a, device, dtype),
+                lambda leaf: _quant_leaf(leaf, lambda a: to_tensor(a, device)))
 
 
 def to_numpy_tree(params):
     """The port's tensor dict -> numpy pytree the JAX package accepts."""
-    return _map(params, to_numpy)
+    return _map(params, to_numpy, lambda leaf: _quant_leaf(leaf, to_numpy))
 
 
 def _adam_moment(optimizer: torch.optim.Optimizer, p: torch.Tensor, key: str) -> np.ndarray:

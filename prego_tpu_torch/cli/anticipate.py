@@ -2,9 +2,10 @@
 prego_tpu/cli/anticipate.py).
 
 Same flags as the JAX CLI; the LLM backends here are --llm {fake,
-torch-llama}. The JAX package's serving options that are not ported yet
-(--quantize, --kv_quant, --serving cb, --spec_k, --orbax_dir) are
-accepted and refused with the ROADMAP item that ports them. Data assets
+torch-llama}. --quantize [int8|int8x8] and --kv_quant select the quantized
+serving modes of torch-llama. The JAX package's serving options that are
+not ported yet (--serving cb, --spec_k, --orbax_dir) are accepted and
+refused with the ROADMAP item that ports them. Data assets
 (context prompts, recognizer prediction JSONs, idx2action/idx2emoji symbol
 maps) are resolved under --data_root, which can point directly at a
 reference-layout step_anticipation/data directory.
@@ -14,6 +15,8 @@ Examples:
       --data_root /path/to/step_anticipation/data --num_samples 2
   python -m prego_tpu_torch.cli.anticipate --llm torch-llama --fabricated 7b \
       --dataset synthcustom --seqs aggregated.json
+  python -m prego_tpu_torch.cli.anticipate --llm torch-llama --fabricated 7b \
+      --quantize int8 --kv_quant --dataset synthcustom --seqs aggregated.json
 """
 
 from __future__ import annotations
@@ -93,10 +96,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "TIMING runs of the full driver at scale (metrics "
                         "are meaningless); no --ckpt_dir needed")
     # the JAX CLI's serving options, refused below until they are ported
-    p.add_argument("--orbax_dir", type=str, default=None, help="not ported (ROADMAP M5)")
+    p.add_argument("--orbax_dir", type=str, default=None,
+                   help="not ported: direct-int8 save and restore (ROADMAP M5)")
     p.add_argument("--quantize", nargs="?", const="int8", default=False,
-                   choices=["int8", "int8x8"], help="not ported (ROADMAP M5)")
-    p.add_argument("--kv_quant", action="store_true", help="not ported (ROADMAP M5)")
+                   choices=["int8", "int8x8"],
+                   help="int8 serving for --llm torch-llama: bare flag or 'int8' = "
+                        "weight-only; 'int8x8' = int8 weights and per-token int8 "
+                        "activations (int8 x int8 products)")
+    p.add_argument("--kv_quant", action="store_true",
+                   help="int8 KV cache for --llm torch-llama (half the decode cache "
+                        "traffic, double the context per GB)")
     p.add_argument("--serving", type=str, default="batch", choices=["batch", "cb"],
                    help="'batch' (drain-style generate); 'cb' not ported (ROADMAP M6)")
     p.add_argument("--cb_slots", type=int, default=None, help="not ported (ROADMAP M6)")
@@ -146,8 +155,8 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
             f"unknown --llm {args.llm!r}; known: {', '.join(sorted(LLMS.keys()))}"
         )
     unported = {
-        "--quantize": (args.quantize, "M5"), "--kv_quant": (args.kv_quant, "M5"),
-        "--orbax_dir": (args.orbax_dir, "M5"), "--serving cb": (args.serving == "cb", "M6"),
+        "--orbax_dir": (args.orbax_dir, "M5, direct-int8 save and restore"),
+        "--serving cb": (args.serving == "cb", "M6"),
         "--spec_k": (args.spec_k, "M7"), "--model_name": (args.model_name, "the hf backend"),
     }
     for flag, (value, item) in unported.items():
@@ -164,6 +173,8 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
             max_batch_size=args.max_batch_size,
             fabricated=args.fabricated,
             device=args.device,
+            quantize=args.quantize,
+            kv_quant=args.kv_quant,
         )
     return kwargs
 

@@ -27,6 +27,18 @@ __device__ __forceinline__ float2 bf16x2_to_float2(unsigned int raw) {
     return __bfloat1622float2(v);
 }
 
+// Four packed int8 values -> four floats, exactly (low byte first). Each
+// byte, its sign bit flipped, becomes the low mantissa byte of 2^23, so
+// the float is 2^23 + 128 + b; one subtraction leaves b. A byte permute
+// and an add a value, both issued at a multiple of the rate of a plain
+// int-to-float conversion.
+__device__ __forceinline__ void int8x4_to_float(unsigned int raw, float* out) {
+    const unsigned int u = raw ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        out[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.f;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

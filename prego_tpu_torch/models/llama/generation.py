@@ -16,7 +16,9 @@ the eos flags and the sampler's draws never come back to the host inside
 the loop, except for an all-rows-done check every ``EOS_CHECK_EVERY``
 tokens (rows that are done only append pad, so running a few steps past
 the last eos changes no output). Prompts share their longest common
-prefix through an LRU of B=1 prefix caches, as in the JAX package.
+prefix through an LRU of B=1 prefix caches, as in the JAX package. With
+``kv_quant`` every cache, the fresh ones and those of the prefix LRU, is
+the int8 cache of ``init_cache(quantized=True)``.
 """
 
 from __future__ import annotations
@@ -57,18 +59,23 @@ class Llama:
     PAD_TO_MULTIPLE = 64  # token buffers are rounded up to this length
     EOS_CHECK_EVERY = 8  # decode steps between host checks for all-done
 
-    def __init__(self, params: Params, tokenizer, config: LlamaConfig):
+    def __init__(self, params: Params, tokenizer, config: LlamaConfig, kv_quant: bool = False):
         self.params = params
         self.tokenizer = tokenizer
         self.config = config
         self.device = params["norm"].device
         self.dtype = params["norm"].dtype
+        self.kv_quant = kv_quant  # int8 KV cache (model.init_cache(quantized=True))
         self.rope = precompute_rope(config, device=self.device)
         self.generator = make_generator(1, self.device)  # generation.py:95 seeds 1
         self._prefix_caches: "OrderedDict[Tuple[int, ...], Cache]" = OrderedDict()
         self.prefix_rebuilds = 0  # observability: from-scratch prefill count
         self.prefix_extends = 0  # observability: delta-prefill count
         self.decode_steps = 0  # single-token forwards run (all rows at once)
+
+    def _new_cache(self, batch: int) -> Cache:
+        return init_cache(self.config, batch, dtype=self.dtype, device=self.device,
+                          quantized=self.kv_quant)
 
     # -- the decode loop --
 
@@ -163,7 +170,7 @@ class Llama:
             out = tokens  # nothing to generate (generation.py:179-186 edge)
             lp = np.zeros_like(tokens, np.float32)
         else:
-            cache = init_cache(config, bsz, dtype=self.dtype, device=self.device)
+            cache = self._new_cache(bsz)
             out_t, lp_t = self._generate_body(
                 torch.from_numpy(tokens).to(self.device), min_prompt_len, total_len,
                 cache, 0, float(temperature), float(top_p), logprobs,
@@ -207,7 +214,7 @@ class Llama:
             start = len(base_key)
             self.prefix_extends += 1
         else:
-            cache = init_cache(self.config, 1, dtype=self.dtype, device=self.device)
+            cache = self._new_cache(1)
             start = 0
             self.prefix_rebuilds += 1
         T = self.config.max_seq_len

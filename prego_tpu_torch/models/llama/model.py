@@ -1,5 +1,5 @@
-"""LLaMA decoder in PyTorch (port of prego_tpu/models/llama/model.py,
-bf16 paths).
+"""LLaMA decoder in PyTorch (port of prego_tpu/models/llama/model.py:
+bf16, int8 weights, int8 x int8 projections and an int8 KV cache).
 
 Parity surface: the Meta reference decoder (step_anticipation/llama/
 model.py:19-487): RMSNorm, rotary embeddings (here the equivalent real
@@ -18,10 +18,24 @@ K/V into the cache tensors in place (``forward`` returns the same
 tensors), which keeps one copy of the cache in device memory. Callers
 that must keep a cache unchanged (the prefix LRU) pass a clone.
 
-Decode (one token per row) runs the two ported kernels: K2 bounded decode
-attention and K7a, the fused FFN sub-layer. Prefill (S > 1), the
-projections, the lm-head and sampling are plain PyTorch, as they are
-plain XLA in the JAX package.
+Decode (one token per row) runs the ported kernels: K2 bounded decode
+attention (K3 over an int8 cache) and, with bf16 weights, K7a, the fused
+FFN sub-layer. Prefill attention, bf16 projections and sampling are plain
+PyTorch, as they are plain XLA in the JAX package.
+
+Quantized serving (``quantize_params``, ``init_params_quantized``): each
+projection leaf becomes ``{"q": int8 (K, N), "s": f32 (1, N)}``, plus an
+empty-tuple ``"act"`` marker for int8 x int8 projections. ``_dense`` sends
+every such leaf through K4 (weight-only) or ``quantize_activations`` and
+K5, at prefill as at decode. The JAX package sends projections with a
+dimension of 4096 or more to an XLA dot on the TPU (``_q8_dense_backend``,
+``PREGO_Q8_DENSE``); that is a TPU choice and is not ported: on the card
+every int8 projection runs K4 or K5. int8 FFN weights take the unfused
+sequence (K7a is bf16 only), as the JAX package does with
+``PREGO_FUSED_FFN_Q8`` off. ``init_cache(quantized=True)`` stores K and V
+as ``{"q": int8 (B, KV, T, hd), "s": f32 (B, KV, T)}``, one symmetric
+scale per position and head; decode reads it with K3 and prefill
+dequantizes it for the masked einsum.
 """
 
 from __future__ import annotations
@@ -32,16 +46,27 @@ import torch
 
 from prego_tpu_torch.models.llama.config import LlamaConfig
 from prego_tpu_torch.ops.decode_attention import decode_attention
+from prego_tpu_torch.ops.decode_attention_q8 import decode_attention_q8
 from prego_tpu_torch.ops.dense import bmm_f32, mm_f32
-from prego_tpu_torch.ops.fused_ffn import feed_forward_reference, fused_ffn_block, rms_norm
+from prego_tpu_torch.ops.fused_ffn import fused_ffn_block, rms_norm
+from prego_tpu_torch.ops.quant import (
+    int8_matmul, int8xint8_matmul, quantize_activations, quantize_weight,
+)
 
 Params = Dict[str, Any]
-Cache = Dict[str, List[torch.Tensor]]  # {"k": [per-layer], "v": [per-layer]}
+# {"k": [per-layer], "v": [per-layer]}; a layer's leaf is a tensor, or
+# {"q": int8, "s": f32} in a quantized cache
+Cache = Dict[str, List[Any]]
 
 __all__ = [
-    "init_params", "fuse_projections", "init_cache", "rms_norm",
-    "precompute_rope", "apply_rope", "forward",
+    "init_params", "init_params_quantized", "quantize_params", "fuse_projections",
+    "init_cache", "clone_cache", "rms_norm", "precompute_rope", "apply_rope", "forward",
 ]
+
+
+def is_quantized(leaf) -> bool:
+    """An int8 projection leaf {"q", "s"[, "act"]}."""
+    return isinstance(leaf, dict) and "q" in leaf
 
 
 # ---- initialization ----
@@ -84,9 +109,102 @@ def init_params(
     }
 
 
+def init_params_quantized(
+    config: LlamaConfig, generator: torch.Generator, fused: bool = True,
+    dtype=torch.bfloat16, device="cpu", activations: bool = False,
+) -> Params:
+    """Random int8 weights drawn directly, without a bf16 model first
+    (prego_tpu/models/llama/model.py::init_params_quantized): each
+    projection is {"q": int8 uniform in [-127, 127], "s": f32 (1, N)} with
+    the scale set so that q * s has the RMS 1/sqrt(d_in) of ``init_params``
+    (an int8 uniform has RMS ~73.3). ``fused`` gives the serving layout
+    (wqkv, w13); ``activations`` adds the int8 x int8 marker. Embeddings
+    and norms are ``dtype``."""
+    D, V, F = config.dim, config.vocab_size, config.ffn_hidden
+    H, KV, hd = config.n_heads, config.kv_heads, config.head_dim
+
+    def qdense(d_in, d_out):
+        q = torch.randint(-127, 128, (d_in, d_out), generator=generator, device=device,
+                          dtype=torch.int8)
+        s = torch.full((1, d_out), 1.0 / (73.3 * d_in ** 0.5), dtype=torch.float32,
+                       device=device)
+        return {"q": q, "s": s, **({"act": ()} if activations else {})}
+
+    def ones():
+        return torch.ones(D, dtype=dtype, device=device)
+
+    layers = []
+    for _ in range(config.n_layers):
+        if fused:
+            attention = {"wqkv": qdense(D, (H + 2 * KV) * hd), "wo": qdense(H * hd, D)}
+            ff = {"w13": qdense(D, 2 * F), "w2": qdense(F, D)}
+        else:
+            attention = {"wq": qdense(D, H * hd), "wk": qdense(D, KV * hd),
+                         "wv": qdense(D, KV * hd), "wo": qdense(H * hd, D)}
+            ff = {"w1": qdense(D, F), "w2": qdense(F, D), "w3": qdense(D, F)}
+        layers.append({"attention": attention, "feed_forward": ff,
+                       "attention_norm": ones(), "ffn_norm": ones()})
+    emb = torch.randn(V, D, generator=generator, device=device, dtype=torch.float32)
+    return {
+        "tok_embeddings": (emb * V ** -0.5).to(dtype),
+        "layers": layers,
+        "norm": ones(),
+        "output": qdense(D, V),
+    }
+
+
+def quantize_params(params: Params, activations: bool = False) -> Params:
+    """Per-output-channel int8 for every projection and the lm-head;
+    embeddings and norms stay as they are. ``activations`` marks the
+    leaves for int8 x int8 products."""
+
+    def quant(w):
+        q, s = quantize_weight(w)
+        return {"q": q, "s": s, **({"act": ()} if activations else {})}
+
+    return {
+        "tok_embeddings": params["tok_embeddings"],
+        "norm": params["norm"],
+        "output": quant(params["output"]),
+        "layers": [
+            {
+                "attention": {k: quant(v) for k, v in layer["attention"].items()},
+                "feed_forward": {k: quant(v) for k, v in layer["feed_forward"].items()},
+                "attention_norm": layer["attention_norm"],
+                "ffn_norm": layer["ffn_norm"],
+            }
+            for layer in params["layers"]
+        ],
+    }
+
+
+def mark_activations(params: Params, activations: bool) -> Params:
+    """The same int8 tensors with the int8 x int8 marker set (or removed)
+    on every quantized leaf."""
+    if is_quantized(params):
+        return {"q": params["q"], "s": params["s"], **({"act": ()} if activations else {})}
+    if isinstance(params, dict):
+        return {k: mark_activations(v, activations) for k, v in params.items()}
+    if isinstance(params, list):
+        return [mark_activations(v, activations) for v in params]
+    return params
+
+
+def _concat(leaves):
+    """Concatenate projections along the output dim; int8 leaves keep
+    their per-column scales, so the result is the quantization of the
+    concatenated weight."""
+    if is_quantized(leaves[0]):
+        out = {"q": torch.cat([l["q"] for l in leaves], dim=1),
+               "s": torch.cat([l["s"] for l in leaves], dim=1)}
+        return {**out, "act": ()} if "act" in leaves[0] else out
+    return torch.cat(leaves, dim=1)
+
+
 def fuse_projections(params: Params) -> Params:
     """Serving layout: wq|wk|wv -> wqkv and w1|w3 -> w13, one projection
-    product each on the decode path."""
+    product each on the decode path. Composes with quantization in either
+    order (per-column scales concatenate)."""
     out = {
         "tok_embeddings": params["tok_embeddings"],
         "norm": params["norm"],
@@ -97,11 +215,8 @@ def fuse_projections(params: Params) -> Params:
         a, f = layer["attention"], layer["feed_forward"]
         out["layers"].append(
             {
-                "attention": {
-                    "wqkv": torch.cat([a["wq"], a["wk"], a["wv"]], dim=1),
-                    "wo": a["wo"],
-                },
-                "feed_forward": {"w13": torch.cat([f["w1"], f["w3"]], dim=1), "w2": f["w2"]},
+                "attention": {"wqkv": _concat([a["wq"], a["wk"], a["wv"]]), "wo": a["wo"]},
+                "feed_forward": {"w13": _concat([f["w1"], f["w3"]]), "w2": f["w2"]},
                 "attention_norm": layer["attention_norm"],
                 "ffn_norm": layer["ffn_norm"],
             }
@@ -109,20 +224,60 @@ def fuse_projections(params: Params) -> Params:
     return out
 
 
-def init_cache(config: LlamaConfig, batch: int, dtype=torch.bfloat16, device="cpu") -> Cache:
-    """Per-layer head-major (B, KV, T, hd) K and V tensors."""
+def init_cache(
+    config: LlamaConfig, batch: int, dtype=torch.bfloat16, device="cpu", quantized: bool = False
+) -> Cache:
+    """Per-layer head-major (B, KV, T, hd) K and V tensors; ``quantized``:
+    {"q": (B, KV, T, hd) int8, "s": (B, KV, T) f32} leaves instead, half
+    the cache bytes of bf16."""
     shape = (batch, config.kv_heads, config.max_seq_len, config.head_dim)
-    return {
-        "k": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(config.n_layers)],
-        "v": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(config.n_layers)],
-    }
+
+    def leaf():
+        if quantized:
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {key: [leaf() for _ in range(config.n_layers)] for key in ("k", "v")}
 
 
 def clone_cache(cache: Cache, batch: Optional[int] = None) -> Cache:
     """A copy of ``cache``; with ``batch``, its B=1 rows repeated to that batch."""
-    if batch is None:
-        return {key: [t.clone() for t in cache[key]] for key in ("k", "v")}
-    return {key: [t.repeat(batch, 1, 1, 1) for t in cache[key]] for key in ("k", "v")}
+
+    def copy(t):
+        if isinstance(t, dict):
+            return {k: copy(v) for k, v in t.items()}
+        return t.clone() if batch is None else t.repeat(batch, *([1] * (t.ndim - 1)))
+
+    return {key: [copy(t) for t in cache[key]] for key in ("k", "v")}
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, KV, S, hd) -> (int8 values, (B, KV, S) f32 symmetric scales)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def _kv_dequant(leaf: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
+    """An int8 cache leaf as ``dtype`` values (the prefill einsum's input)."""
+    return (leaf["q"].float() * leaf["s"][..., None]).to(dtype)
+
+
+def _dense(x: torch.Tensor, leaf) -> torch.Tensor:
+    """x (..., K) times a projection leaf, f32 out: a plain tensor through
+    ``mm_f32``, an int8 leaf through K4, an int8 leaf marked ``act``
+    through ``quantize_activations`` and K5."""
+    if not is_quantized(leaf):
+        return mm_f32(x, leaf)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if "act" in leaf:
+        xq, xs = quantize_activations(x2)
+        y = int8xint8_matmul(xq, xs, leaf["q"], leaf["s"])
+    else:
+        y = int8_matmul(x2, leaf["q"], leaf["s"])
+    return y.reshape(*lead, y.shape[-1])
 
 
 # ---- building blocks ----
@@ -156,8 +311,8 @@ def _attention(
     start_pos: int,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    cache_k: torch.Tensor,  # (B, KV, T, hd), written in place
-    cache_v: torch.Tensor,
+    cache_k,  # (B, KV, T, hd) tensor or int8 {"q", "s"} leaf, written in place
+    cache_v,
     config: LlamaConfig,
     valid: Optional[torch.Tensor],  # (B,) int32 decode bound, start_pos + 1
 ) -> torch.Tensor:
@@ -167,51 +322,74 @@ def _attention(
     H, KV, hd = config.n_heads, config.kv_heads, config.head_dim
     x = rms_norm(h, norm_weight, config.norm_eps)
     if "wqkv" in p:
-        xqkv = mm_f32(x, p["wqkv"]).to(x.dtype)
+        xqkv = _dense(x, p["wqkv"]).to(x.dtype)
     else:
-        xqkv = torch.cat([mm_f32(x, p[w]).to(x.dtype) for w in ("wq", "wk", "wv")], dim=-1)
+        xqkv = torch.cat([_dense(x, p[w]).to(x.dtype) for w in ("wq", "wk", "wv")], dim=-1)
     # q and k heads rotate together: one rope pass over H + KV heads
     qk = apply_rope(xqkv[..., : (H + KV) * hd].reshape(B, S, H + KV, hd), cos, sin)
     xq, xk = qk[:, :, :H], qk[:, :, H:]
     xv = xqkv[..., (H + KV) * hd :].reshape(B, S, KV, hd)
 
-    cache_k[:, :, start_pos : start_pos + S] = xk.transpose(1, 2).to(cache_k.dtype)
-    cache_v[:, :, start_pos : start_pos + S] = xv.transpose(1, 2).to(cache_v.dtype)
+    kv_quant = isinstance(cache_k, dict)
+    span = slice(start_pos, start_pos + S)
+    for cache, new in ((cache_k, xk), (cache_v, xv)):
+        new = new.transpose(1, 2)  # (B, KV, S, hd)
+        if kv_quant:  # one scale per new position and head
+            cache["q"][:, :, span], cache["s"][:, :, span] = _kv_quantize(new)
+        else:
+            cache[:, :, span] = new.to(cache.dtype)
 
     q = xq.reshape(B, S, KV, H // KV, hd)
     if S == 1:
-        # one token per row: the bounded decode kernel (K2)
-        out = decode_attention(q[:, 0].contiguous(), cache_k, cache_v, valid)
+        # one token per row: the bounded decode kernel (K3 over int8, K2)
+        q1 = q[:, 0].contiguous()
+        if kv_quant:
+            out = decode_attention_q8(q1, cache_k["q"], cache_k["s"], cache_v["q"],
+                                      cache_v["s"], valid)
+        else:
+            out = decode_attention(q1, cache_k, cache_v, valid)
         out = out.reshape(B, 1, H * hd).to(x.dtype)
     else:
-        # GQA against the full cache with a causal mask (model.py:613-636)
-        T = cache_k.shape[2]
+        # GQA against the full cache with a causal mask (model.py:612-636);
+        # an int8 cache is dequantized for it
+        k_full = _kv_dequant(cache_k, x.dtype) if kv_quant else cache_k
+        v_full = _kv_dequant(cache_v, x.dtype) if kv_quant else cache_v
+        T = k_full.shape[2]
         qh = q.permute(0, 2, 3, 1, 4)  # (B, KV, R, S, hd)
-        scores = bmm_f32(qh, cache_k[:, :, None].transpose(-1, -2)) / (hd ** 0.5)
+        scores = bmm_f32(qh, k_full[:, :, None].transpose(-1, -2)) / (hd ** 0.5)
         q_pos = start_pos + torch.arange(S, device=h.device)[:, None]
         k_pos = torch.arange(T, device=h.device)[None, :]
         scores = torch.where(k_pos <= q_pos, scores, float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = bmm_f32(probs, cache_v[:, :, None]).to(x.dtype)  # (B, KV, R, S, hd)
+        out = bmm_f32(probs, v_full[:, :, None]).to(x.dtype)  # (B, KV, R, S, hd)
         out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-    return h + mm_f32(out, p["wo"]).to(x.dtype)
+    return h + _dense(out, p["wo"]).to(x.dtype)
+
+
+def _feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """silu(x.w1) * (x.w3) cast to x's dtype, then .w2, in x's dtype."""
+    if "w13" in p:
+        g13 = _dense(x, p["w13"])
+        F = g13.shape[-1] // 2
+        gate, up = g13[..., :F], g13[..., F:]
+    else:
+        gate, up = _dense(x, p["w1"]), _dense(x, p["w3"])
+    act = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    return _dense(act, p["w2"]).to(x.dtype)
 
 
 def _ffn_sublayer(layer: Params, h: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
-    """h + ffn(rms_norm(h, ffn_norm)). Decode rows in the fused layout run
-    the K7a wrapper; prefill runs the same op sequence unfused."""
+    """h + ffn(rms_norm(h, ffn_norm)). Decode rows with bf16 weights in the
+    fused layout run the K7a wrapper; prefill and int8 weights run the op
+    sequence unfused."""
     p = layer["feed_forward"]
     nw = layer["ffn_norm"]
     B, S, D = h.shape
-    if "w13" in p and S == 1:
+    if "w13" in p and not is_quantized(p["w13"]) and S == 1:
         return fused_ffn_block(h.reshape(B, D), nw, p["w13"], p["w2"], config.norm_eps).reshape(
             B, 1, D
         )
-    x = rms_norm(h, nw, config.norm_eps)
-    if "w13" in p:
-        return h + feed_forward_reference(x, p["w13"], p["w2"]).to(h.dtype)
-    act = (torch.nn.functional.silu(mm_f32(x, p["w1"])) * mm_f32(x, p["w3"])).to(x.dtype)
-    return h + mm_f32(act, p["w2"]).to(h.dtype)
+    return h + _feed_forward(p, rms_norm(h, nw, config.norm_eps))
 
 
 def forward(
@@ -245,4 +423,4 @@ def forward(
         )
         h = _ffn_sublayer(layer, h, config)
     h = rms_norm(h, params["norm"], config.norm_eps)
-    return mm_f32(h, params["output"]), cache
+    return _dense(h, params["output"]), cache

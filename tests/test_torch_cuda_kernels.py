@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from prego_tpu_torch.ops import decode_attention as da
+from prego_tpu_torch.ops import decode_attention_q8 as da8
 from prego_tpu_torch.ops import fused_ffn as ffn
-from prego_tpu_torch.ops import gru_cuda, gru_cuda_vjp
+from prego_tpu_torch.ops import gru_cuda, gru_cuda_vjp, quant
 
 pytestmark = pytest.mark.cuda
 
@@ -213,3 +214,106 @@ def test_gru_trainable_runs_k1_forward_and_k6_backward(cuda_device):
     want = grads("cpu", torch.float32)
     for g, r in zip(got, want):
         assert _rel_err(g, r) <= 2.0 ** -4
+
+
+# K3 over an int8 cache: as K2, pv = bf16(p * v_scale) is rounded against
+# the split's own max in the kernel and the row's in the plain version;
+# each pv moves by at most 2^-9 of itself, the output (a convex
+# combination of |v| < 5) by 2^-9 * 5, plus its own bf16 rounding
+ATTN_Q8_TOL = ATTN_TOL
+# K4: bf16 x int8 products are exact in f32 on both sides; the f32 sums of
+# K <= 11008 products are taken in another order (the plain version is a
+# cuBLAS bf16 GEMM with f32 output), relative to the largest output
+W8_REL_TOL = 1e-4
+
+
+def _attn_q8_inputs(device, B, KV, R, T, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(0, 1, (B, KV, R, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(0, 1, (B, KV, T, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(0, 1, (B, KV, T, hd)).astype(np.float32))
+    kq, ks = quant.quantize_activations(k.reshape(-1, hd))
+    vq, vs = quant.quantize_activations(v.reshape(-1, hd))
+    to = lambda a, *shape: a.reshape(*shape).to(device)
+    return (q.to(device, torch.bfloat16), to(kq, B, KV, T, hd), to(ks, B, KV, T),
+            to(vq, B, KV, T, hd), to(vs, B, KV, T))
+
+
+@pytest.mark.parametrize("B,KV,R,T,hd", [(2, 2, 1, 128, 128), (3, 4, 2, 192, 64),
+                                         (8, 32, 1, 512, 128), (2, 8, 4, 512, 128),
+                                         (2, 2, 8, 256, 256), (1, 3, 3, 100, 48)])
+def test_decode_attention_q8_kernel_matches_plain(cuda_device, B, KV, R, T, hd):
+    args = _attn_q8_inputs(cuda_device, B, KV, R, T, hd)
+    valid = torch.tensor(([0, T, 1, 77, 63, 65, 300, 511] * B)[:B], dtype=torch.int32,
+                         device=cuda_device).clamp(max=T)  # 0, T, odd and mid-split bounds
+    before = da8.KERNEL.launches
+    out = da8.decode_attention_q8(*args, valid)
+    torch.cuda.synchronize()
+    assert da8.KERNEL.launches == before + 1
+    want = da8.decode_attention_q8_reference(*args, valid)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_Q8_TOL)
+    assert torch.all(out[valid == 0] == 0)
+    for bound in (0, 1, T // 2 + 1):  # a scalar bound reaches the same kernel
+        torch.testing.assert_close(da8.decode_attention_q8(*args, bound).float(),
+                                   da8.decode_attention_q8_reference(*args, bound).float(),
+                                   **ATTN_Q8_TOL)
+    assert torch.equal(da8.decode_attention_q8(*args, valid), out)  # the same bits again
+
+
+def _w8_inputs(device, M, K, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(np.float32))
+    q, s = quant.quantize_weight(torch.from_numpy(rng.normal(0, 0.02, (K, N)).astype(np.float32)))
+    return x.to(device, torch.bfloat16), q.to(device), s.to(device)
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 300])
+@pytest.mark.parametrize("K,N", [(4096, 1000), (4096, 32000), (11008, 4096), (64, 24)])
+def test_int8_matmul_kernel_matches_plain(cuda_device, M, K, N):
+    x, q, s = _w8_inputs(cuda_device, M, K, N)
+    before = quant.KERNEL_W8.launches
+    y = quant.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert quant.KERNEL_W8.launches == before + 1 and y.dtype == torch.float32
+    want = quant.int8_matmul_reference(x, q, s)
+    assert float((y - want).abs().max()) <= W8_REL_TOL * float(want.abs().max())
+    assert torch.equal(quant.int8_matmul(x, q, s), y)  # the same bits again
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 300])
+@pytest.mark.parametrize("K,N", [(4096, 1000), (4096, 32000), (11008, 4096), (64, 24)])
+def test_int8xint8_matmul_kernel_matches_plain(cuda_device, M, K, N):
+    """K5 is exact: int32 sums on both sides, rounded once to f32 and
+    scaled in the same order, so kernel and plain agree bit for bit."""
+    x, q, s = _w8_inputs(cuda_device, M, K, N, seed=1)
+    xq, xs = quant.quantize_activations(x)
+    before = quant.KERNEL_W8A8.launches
+    y = quant.int8xint8_matmul(xq, xs, q, s)
+    torch.cuda.synchronize()
+    assert quant.KERNEL_W8A8.launches == before + 1
+    assert torch.equal(y, quant.int8xint8_matmul_reference(xq, xs, q, s))
+    assert torch.equal(quant.int8xint8_matmul(xq, xs, q, s), y)
+
+
+def test_int8_kernels_refuse_what_they_cannot_take(cuda_device):
+    x, q, s = _w8_inputs(cuda_device, 4, 64, 24)
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x, q.float(), s)  # f32 weights
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x, q.t(), s.t())  # a transposed (non-contiguous) weight
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x[:, :60].contiguous(), q[:60], s)  # K not a multiple of 8
+    xq, xs = quant.quantize_activations(x)
+    with pytest.raises(ValueError):
+        quant.int8xint8_matmul(x, xs, q, s)  # bf16 activations
+    with pytest.raises(ValueError):
+        quant.int8xint8_matmul(xq, xs.reshape(-1), q, s)  # scales not (M, 1)
+    with pytest.raises(ValueError):
+        quant.int8xint8_matmul(xq[:, :56].contiguous(), xs, q[:56], s)  # K not a multiple of 16
+    args = _attn_q8_inputs(cuda_device, 1, 2, 1, 64, 64)
+    with pytest.raises(ValueError):
+        da8.decode_attention_q8(args[0].float(), *args[1:], 3)  # f32 query
+    with pytest.raises(ValueError):
+        da8.decode_attention_q8(args[0], args[1].to(torch.bfloat16), *args[2:], 3)  # bf16 cache
+    with pytest.raises(ValueError):
+        da8.decode_attention_q8(args[0], args[1], args[2][..., :32], *args[3:], 3)  # scales cut

@@ -1,8 +1,9 @@
 """The whole slice at a tiny size, port against prego_tpu: recognition
 eval JSON -> aggregation -> anticipation with the LLaMA backend (greedy,
-the same tiny weights handed over) -> mistake verdicts and metrics. Also
-drives the port's train and pipeline CLIs in a subprocess and checks that
-they never load jax or any module of the JAX package."""
+the same tiny weights handed over; bf16/f32, int8 and int8 x int8 weights)
+-> mistake verdicts and metrics. Also drives the port's train, pipeline
+and quantized anticipate CLIs in a subprocess and checks that they never
+load jax or any module of the JAX package."""
 
 import json
 import os
@@ -13,6 +14,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from prego_tpu.aggregate import aggregate
@@ -91,6 +93,67 @@ def test_slice_matches_jax(setup, tmp_path):
     assert got.preds == want.preds and got.gts == want.gts
     assert got.metrics == want.metrics
     assert tllm.llama.decode_steps > 0
+
+
+@pytest.fixture(scope="module")
+def aggregated(setup, tmp_path_factory):
+    """The port's recognition eval of the init checkpoint, aggregated."""
+    _, cfg_path, ckpt = setup
+    out = tmp_path_factory.mktemp("torch_pipe_agg")
+    raw = _eval(train_main, cfg_path, ckpt, out, ["--device", "cpu"])
+    return aggregate(raw, str(out / "agg.json")), out / "agg.json"
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int8x8"])
+def test_quantized_slice_matches_jax(aggregated, quantize):
+    """jax-llama with quantized tiny weights against torch-llama on the
+    same int8 tree through the bridge: the same anticipated sets,
+    verdicts and metrics, greedy."""
+    agg, _ = aggregated
+    jllm = JaxLlamaLLM(ckpt_dir="", tokenizer_path="", fabricated="tiny", max_seq_len=256,
+                       quantize=quantize)
+    jcfg = jllm.llama.config
+    tllm = TorchLlamaLLM(
+        params=llama_from_numpy(jax.tree.map(np.asarray, jllm.llama.params)),
+        config=LlamaConfig(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__}),
+        device="cpu", quantize=quantize,
+    )
+    wqkv = tllm.llama.params["layers"][0]["attention"]["wqkv"]
+    assert wqkv["q"].dtype == torch.int8 and ("act" in wqkv) == (quantize == "int8x8")
+    kw = dict(dataset="synthcustom", max_gen_len=6, temperature=0.0, num_samples=2)
+    want = jax_run_anticipation(agg, jllm, **kw)
+    got = run_anticipation(agg, tllm, **kw)
+    assert got.preds == want.preds and got.gts == want.gts
+    assert got.metrics == want.metrics
+    assert tllm.llama.decode_steps > 0
+
+
+def test_port_quantized_anticipate_cli_never_loads_jax(aggregated, tmp_path):
+    """--quantize int8 --kv_quant through the port's anticipate CLI in a
+    fresh interpreter (int8 weights drawn directly, int8 KV cache, CPU):
+    metrics come out, and neither jax nor the JAX package is loaded."""
+    agg, agg_path = aggregated
+    code = (
+        "import sys, json\n"
+        "from prego_tpu_torch.cli.anticipate import main\n"
+        f"r = main(['--llm', 'torch-llama', '--fabricated', 'tiny', '--quantize', 'int8',\n"
+        f"          '--kv_quant', '--dataset', 'synthcustom', '--seqs', {str(agg_path)!r},\n"
+        f"          '--results_root', {str(tmp_path / 'results')!r}, '--max_gen_len', '4',\n"
+        "          '--max_seq_len', '256', '--device', 'cpu'])\n"
+        "jax_pkg = sorted(m for m in sys.modules if m == 'prego_tpu' or m.startswith('prego_tpu.'))\n"
+        "print(json.dumps({'jax_loaded': 'jax' in sys.modules, 'jax_package': jax_pkg,\n"
+        "                  'samples': r.metrics['samples']}))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("PREGO_PLATFORM", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["jax_loaded"] is False
+    assert report["jax_package"] == []
+    assert report["samples"] == sum(len(v["pred"]) for v in agg.values())
+    assert (tmp_path / "results").exists()
 
 
 def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):
