@@ -2,19 +2,22 @@
 
   python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the seven
+1. Prints the card (nvidia-smi name and power limit), builds the ten
    CUDA kernels of the paths from prego_tpu_torch/csrc with nvcc (one nvcc
    per library, all started together), and holds each against its plain
    PyTorch version at the shapes the main path gives it, in bf16 (int8
    for the quantized kernels), timing both with CUDA events, beside its
    roofline bound and, where one PyTorch call computes the same function,
    that call's time. The cuDNN GRU layer is timed beside the trainable GRU
-   layer as a yardstick.
+   layer as a yardstick, and the bf16 decode fusions (K8, K8u, K7) beside
+   the unfused sequence each replaces.
 2. Checks the port against its f32 CPU path: MiniROAD eval at full width
    on two video prefixes, one MiniROAD train step at full width (K1 + K6,
-   bf16 stream, dropout 0) on 16 windows, and a 2-layer LLaMA at 7B width
+   bf16 stream, dropout 0) on 16 windows, a 2-layer LLaMA at 7B width
    in bf16, with int8 weights and an int8 KV cache, and with int8 x int8
-   projections.
+   projections, and a 2-layer LLaMA at 1B width in bf16 in the three
+   fusion settings (default: K8 with its residual + K7a;
+   PREGO_FUSED_LAYER=0: K8 + K7; PREGO_FUSED_CACHE_UPD=1: K8u + K7a).
 3. Drives the main path once, through the functions the CLIs call:
    synthetic Assembly101-O-shaped videos (2048-wide rgb features, 86
    classes, a train and a test split) -> MiniROAD training for 2 epochs at
@@ -26,13 +29,19 @@
    byte tokenizer) -> one-class verdicts and metrics; then anticipation
    twice more over the same aggregated sequences, at 7B with
    --quantize int8 --kv_quant (K4, K3) and with --quantize int8x8 (K5,
-   K2), int8 weights drawn directly from a seed. Every kernel's launch
+   K2), int8 weights drawn directly from a seed; then anticipation at the
+   1B shape (--fabricated 1b: dim 2048, 16 layers, 16 heads, bf16) over
+   the same sequences in the three fusion settings, the environment set
+   around each run and restored after (K2 must not run in the default
+   one). Every kernel's launch
    count is reset just before this run and must be above 0 after it; the
    trained checkpoint's mAP must beat the untrained model's, and the
    training loss must fall.
 4. Times train steps (host clock, and the device busy share of a few under
-   torch.profiler) and 7B decode steps at batch 1 and 8 in the three modes
-   (at batch 1 with the device busy share too).
+   torch.profiler), 7B decode steps at batch 1 and 8 in the three modes,
+   and 1B decode steps at batch 1 and 8 in four fusion settings (the
+   three above and PREGO_FUSED_ATTN_WO=0, the unfused K2 sequence); at
+   batch 1 with the device busy share too.
 
 TF32 is off for matmuls and cuDNN, so f32 products are full f32. Any
 failure raises (non-zero exit). The last line is the JSON device record;
@@ -40,8 +49,10 @@ before it come a JSON line with each kernel's numbers and the nvidia-smi
 line. Needs one CUDA device; refuses to run without one.
 """
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -64,6 +75,11 @@ KERNEL_INFO = {
                             "prego_tpu/ops/decode_attention.py:1372"),
     "int8_matmul": ("prego_tpu_torch/csrc/int8_matmul.cu", "prego_tpu/ops/quant.py:80"),
     "int8xint8_matmul": ("prego_tpu_torch/csrc/int8_matmul.cu", "prego_tpu/ops/quant.py:169"),
+    "decode_attention_wo": ("prego_tpu_torch/csrc/decode_attention_wo.cu",
+                            "prego_tpu/ops/decode_attention.py:846"),
+    "decode_attention_wo_res_upd": ("prego_tpu_torch/csrc/decode_attention_wo.cu",
+                                    "prego_tpu/ops/decode_attention.py:938"),
+    "fused_ffn": ("prego_tpu_torch/csrc/fused_ffn.cu", "prego_tpu/ops/fused_ffn.py:85"),
 }
 # stated tolerances, kernel vs plain version, both bf16 on the card:
 TOL = {
@@ -90,7 +106,23 @@ TOL = {
     # exact int32 sums rounded once to f32 and scaled in the same order on
     # both sides: equal, allowed one ulp (2^-21 at |y| < 8)
     "int8xint8_matmul": 2.0 ** -20,
+    # K8, both bodies, and K8u: o is K2's bf16 output (its p rounded
+    # against the split's max, 2^-5 above), carried into y = o.wo with wo ~
+    # N(0, 1 / (H hd)), about one such difference; with the residual, the
+    # bf16 output h + y (|out| < 8) rounds one ulp (2^-5) apart besides
+    "decode_attention_wo": 2.0 ** -4,
+    "decode_attention_wo_res_upd": 2.0 ** -4,
+    # K7, f32 out: where an f32 sum of D products lands on a bf16 boundary
+    # of the activation a, a moves one bf16 ulp (2^-8 of |a| < 8), and each
+    # such move enters y through one w2 element (~F^-0.5)
+    "fused_ffn": 2.0 ** -5,
 }
+# the bf16 decode fusion gates (prego_tpu_torch/models/llama/model.py) and
+# the settings the 1B path runs in
+FUSION_GATES = ("PREGO_FUSED_FFN", "PREGO_FUSED_ATTN_WO", "PREGO_FUSED_LAYER",
+                "PREGO_FUSED_CACHE_UPD")
+FUSION_SETTINGS = {"default": {}, "layer_off": {"PREGO_FUSED_LAYER": "0"},
+                   "cache_upd": {"PREGO_FUSED_CACHE_UPD": "1"}}
 # the card's published peaks (H100 SXM, dense): bf16 and int8 tensor
 # cores, HBM
 PEAK_BF16_FLOPS = 989e12
@@ -156,6 +188,24 @@ def log_case(name, shape, case, tol_note=""):
     log(f"{name} {shape}: max_abs_err {case['max_abs_err']:.3e} (tol {TOL[name]:.3e}{tol_note}), "
         f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
         f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}), library {case['library_ms']}")
+
+
+@contextlib.contextmanager
+def gate_env(env):
+    """The fusion gates set to ``env`` (the rest unset) for the block, then
+    restored."""
+    saved = {g: os.environ.get(g) for g in FUSION_GATES}
+    for g in FUSION_GATES:
+        os.environ.pop(g, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for g, v in saved.items():
+            if v is None:
+                os.environ.pop(g, None)
+            else:
+                os.environ[g] = v
 
 
 def nvidia_smi_line():
@@ -413,6 +463,136 @@ def check_quant_kernels(dev):
     return rows, cases
 
 
+def check_fused_kernels(dev):
+    """K8 (both bodies) and K8u at the 1B attention shape (KV 16, R 1, hd
+    128, T 512, D 2048) at B 1 and 8, and K7 at the 1B FFN (M 1 and 8) and
+    the 7B FFN (M 1), against their plain versions; inputs cycle through
+    copies that pass the L2 cache. Beside K8 and K8u, the unfused sequence
+    each replaces (K2, the wo product, the cast and the add; for K8u the
+    cache write first); K7's plain version is that sequence. Returns the
+    kernels' rows and every case."""
+    from prego_tpu_torch.ops import decode_attention as da
+    from prego_tpu_torch.ops import decode_attention_wo as dwo
+    from prego_tpu_torch.ops import fused_ffn as ffn
+    from prego_tpu_torch.ops.dense import mm_f32
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    bf16 = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf16)
+
+    cases = {"decode_attention_wo": [], "decode_attention_wo_res_upd": [], "fused_ffn": []}
+    KV, R, hd, T, D = 16, 1, 128, 512, 2048
+    H = KV * R
+    for vl in ([300], [0, 512, 1, 77, 255, 256, 300, 511]):
+        B = len(vl)
+        valid = torch.tensor(vl, dtype=torch.int32, device=dev)
+        pos = (valid - 1).clamp(min=0)  # K8u writes at pos and attends to <= pos
+
+        def make():
+            qkv = rn(B, 1, (H + 2 * KV) * hd)  # the new K/V as views, as the model hands them
+            return (rn(B, KV, R, hd), rn(B, KV, T, hd), rn(B, KV, T, hd),
+                    rn(H * hd, D, scale=(H * hd) ** -0.5), rn(B, 1, D),
+                    qkv[..., H * hd : (H + KV) * hd].reshape(B, 1, KV, hd).transpose(1, 2),
+                    qkv[..., (H + KV) * hd :].reshape(B, 1, KV, hd).transpose(1, 2))
+        sets = copies_past_l2(make, 2 * B * KV * T * hd * 2 + H * hd * D * 2)
+        q, k, v, wo, h, k_new, v_new = sets[0]
+        proj = dwo.decode_attention_wo(q, k, v, valid, wo)
+        res = dwo.decode_attention_wo(q, k, v, valid, wo, residual=h)
+        if B > 1 and not (torch.all(proj[0] == 0) and torch.equal(res[0], h[0])):
+            raise AssertionError("decode_attention_wo: valid 0 must give zeros through wo")
+
+        def unfused(q, k, v, wo, h, *_):  # the path K8 replaces
+            o = da.decode_attention(q, k, v, valid).reshape(B, 1, H * hd)
+            return h + mm_f32(o, wo).to(h.dtype)
+
+        def k8(q, k, v, wo, h, *_):
+            return dwo.decode_attention_wo(q, k, v, valid, wo, residual=h)
+
+        used = int(valid.sum())  # positions below the bounds: what this data needs read
+        flops = 2 * 2 * used * KV * R * hd + 2 * B * H * hd * D
+        case = dict(
+            B=B, max_abs_err=max(
+                max_err(proj, dwo.decode_attention_wo_reference(q, k, v, valid, wo)),
+                max_err(res, dwo.decode_attention_wo_reference(q, k, v, valid, wo, residual=h))),
+            ms=time_ms_cycle(k8, sets, 50),
+            ms_without_residual=time_ms_cycle(
+                lambda q, k, v, wo, *_: dwo.decode_attention_wo(q, k, v, valid, wo), sets, 50),
+            plain_ms=time_ms_cycle(
+                lambda q, k, v, wo, h, *_: dwo.decode_attention_wo_reference(
+                    q, k, v, valid, wo, residual=h), sets, 20),
+            **bound(flops, 2 * used * KV * hd * 2 + nbytes(q, valid, wo, h, res)),
+            library_ms=None,  # no one PyTorch call: see unfused_ms
+            unfused_ms=time_ms_cycle(unfused, sets, 50),
+        )
+        cases["decode_attention_wo"].append(case)
+        log_case("decode_attention_wo", f"B={B} KV={KV} R={R} hd={hd} T={T} D={D}", case)
+        log(f"  without the residual {case['ms_without_residual']:.4f} ms; the unfused "
+            f"sequence (K2, torch.mm, cast, add) {case['unfused_ms']:.4f} ms")
+
+        # K8u: the caches after the kernel must equal write-then-attend exactly
+        ck, cv = k.clone(), v.clone()
+        out, _, _ = dwo.decode_attention_wo_res_upd(q, h, k_new, v_new, ck, cv, pos, wo)
+        want, rk, rv = dwo.decode_attention_wo_res_upd_reference(
+            q, h, k_new, v_new, k.clone(), v.clone(), pos, wo)
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, rk) and torch.equal(cv, rv)):
+            raise AssertionError("decode_attention_wo_res_upd: the cache differs from "
+                                 "write-then-attend")
+
+        def unfused_upd(q, k, v, wo, h, k_new, v_new):  # the path K8u replaces
+            dwo.write_token_kv(k_new, v_new, k, v, pos)
+            return unfused(q, k, v, wo, h)
+
+        upd_used = int((pos + 1).sum())
+        case = dict(
+            B=B, max_abs_err=max_err(out, want), cache_equal=True,
+            ms=time_ms_cycle(lambda q, k, v, wo, h, kn, vn: dwo.decode_attention_wo_res_upd(
+                q, h, kn, vn, k, v, pos, wo), sets, 50),
+            plain_ms=time_ms_cycle(lambda q, k, v, wo, h, kn, vn:
+                                   dwo.decode_attention_wo_res_upd_reference(
+                                       q, h, kn, vn, k, v, pos, wo), sets, 20),
+            # K/V below the bounds read once (the new rows from k_new /
+            # v_new), the two rows written
+            **bound(2 * 2 * upd_used * KV * R * hd + 2 * B * H * hd * D,
+                    2 * upd_used * KV * hd * 2 + 2 * B * KV * hd * 2
+                    + nbytes(q, pos, wo, h, out)),
+            library_ms=None,
+            unfused_ms=time_ms_cycle(unfused_upd, sets, 50),
+        )
+        cases["decode_attention_wo_res_upd"].append(case)
+        log_case("decode_attention_wo_res_upd", f"B={B} KV={KV} R={R} hd={hd} T={T} D={D}",
+                 case, "; caches equal write-then-attend")
+        log(f"  the unfused sequence (cache write, K2, torch.mm, cast, add) "
+            f"{case['unfused_ms']:.4f} ms")
+
+    # K7 at the 1B FFN (M 1 and 8) and the 7B FFN (M 1)
+    for M, D_, F in ((1, 2048, 5632), (8, 2048, 5632), (1, 4096, 11008)):
+        sets = copies_past_l2(lambda: (rn(M, D_), rn(D_, 2 * F, scale=D_ ** -0.5),
+                                       rn(F, D_, scale=F ** -0.5)), 3 * D_ * F * 2)
+        y = ffn.fused_ffn(*sets[0])
+        case = dict(
+            M=M, D=D_, F=F, max_abs_err=max_err(y, ffn.fused_ffn_reference(*sets[0])),
+            ms=time_ms_cycle(ffn.fused_ffn, sets, 50),
+            plain_ms=time_ms_cycle(ffn.fused_ffn_reference, sets, 50),  # the unfused sequence
+            **bound(2 * M * D_ * 3 * F, nbytes(*sets[0], y)),
+            library_ms=None,  # PyTorch has no fused SwiGLU FFN call
+        )
+        cases["fused_ffn"].append(case)
+        log_case("fused_ffn", f"M={M} D={D_} F={F}", case, "; plain = the unfused sequence")
+
+    rows = {}
+    for name, cs in cases.items():
+        rows[name] = {k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}
+        rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cs)
+        if not rows[name]["max_abs_err"] <= TOL[name]:
+            raise AssertionError(f"{name}: max_abs_err {rows[name]['max_abs_err']} > {TOL[name]}")
+    return rows, cases
+
+
 def gru_layer_yardstick(dev):
     """The trainable GRU layer (K1 forward, K6 backward) beside cuDNN's GRU
     layer, both at the training shape and both including the input
@@ -593,8 +773,49 @@ def check_against_cpu(dev):
     if not worst <= 3e-2:
         raise AssertionError("LLaMA on the card disagrees with the CPU f32 path")
     quantized = check_llama_quantized(cfg, dev, toks)
+    fused = check_llama_1b(dev, toks)
     return {"miniroad_max_prob_err": rec_err, "miniroad_argmax_agreement": agree,
-            "llama_rel_logit_err": worst, **quantized, **train}
+            "llama_rel_logit_err": worst, **quantized, **fused, **train}
+
+
+def check_llama_1b(dev, toks):
+    """A 2-layer LLaMA at 1B width in bf16 on the card against the f32 CPU
+    path, in each fusion setting, with the 7B bf16 check's tolerance; the
+    card must run that setting's kernels."""
+    from prego_tpu_torch.anticipation.llm import fabricated_config
+    from prego_tpu_torch.models.llama.model import forward, fuse_projections, init_cache
+    from prego_tpu_torch.models.llama.model import init_params
+    from prego_tpu_torch.ops import kernels
+
+    cfg = fabricated_config("1b", max_seq_len=512, max_batch_size=8, n_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    p_dev = fuse_projections(init_params(cfg, gen, dtype=torch.bfloat16, device=dev))
+    p_cpu = llama_to_cpu(p_dev, f32=True)
+    expect = {"default": ("decode_attention_wo", "fused_ffn_block"),
+              "layer_off": ("decode_attention_wo", "fused_ffn"),
+              "cache_upd": ("decode_attention_wo_res_upd", "fused_ffn_block")}
+    out = {}
+    for setting, env in FUSION_SETTINGS.items():
+        before = {n: k.launches for n, k in kernels().items()}
+        with gate_env(env):
+            c_dev = init_cache(cfg, 2, torch.bfloat16, dev)
+            c_cpu = init_cache(cfg, 2, torch.float32, "cpu")
+            worst = 0.0
+            for pos, chunk in ((0, toks[:, :16]), (16, toks[:, 16:17]), (17, toks[:, 17:18]),
+                               (18, toks[:, 18:19])):
+                l_dev, c_dev = forward(p_dev, chunk.to(dev), pos, c_dev, cfg)
+                l_cpu, c_cpu = forward(p_cpu, chunk, pos, c_cpu, cfg)
+                worst = max(worst, max_err(l_dev.cpu(), l_cpu) / float(l_cpu.abs().max()))
+        ran = {n: k.launches - before[n] for n, k in kernels().items() if k.launches > before[n]}
+        log(f"LLaMA 1B width x 2 layers, {setting}, card bf16 vs CPU f32, prefill 16 + 3 decode "
+            f"steps: max |d logit| / max |logit| {worst:.3e} (tol 3e-2); kernels run {ran}")
+        if not worst <= 3e-2:
+            raise AssertionError(f"LLaMA 1B ({setting}) on the card disagrees with the CPU path")
+        if set(ran) != set(expect[setting]):
+            raise AssertionError(f"LLaMA 1B ({setting}) ran {ran}, not {expect[setting]}")
+        out[f"llama_1b_{setting}_rel_logit_err"] = worst
+    return out
 
 
 def check_llama_quantized(cfg, dev, toks):
@@ -746,6 +967,7 @@ def run_main_path(dev):
     from prego_tpu_torch.cli.pipeline import aggregate_predictions
     from prego_tpu_torch.cli.train import run_eval, run_train
     from prego_tpu_torch.core import RecognitionConfig
+    from prego_tpu_torch.core.seed import make_generator
     from prego_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -763,15 +985,21 @@ def run_main_path(dev):
     mode_args = {mode: anticipate.parse_args([*ant_args_list, *flags]) for mode, flags in
                  (("int8_kv8", ["--quantize", "int8", "--kv_quant"]),
                   ("int8x8", ["--quantize", "int8x8"]))}
+    # the 1B shape in bf16, run in each fusion setting
+    args_1b = anticipate.parse_args([a if a != "7b" else "1b" for a in ant_args_list])
     t_llm = time.perf_counter()
     llm = anticipate.make_llm(ant_args)  # 7B bf16 weights from a seed
     torch.cuda.synchronize()
     t_q = time.perf_counter()
     qllms = {mode: anticipate.make_llm(a) for mode, a in mode_args.items()}  # int8, drawn directly
     torch.cuda.synchronize()
+    t_1b = time.perf_counter()
+    llm_1b = anticipate.make_llm(args_1b)
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     log(f"set-up {setup_s:.1f}s: data, untrained mAP {before:.4f}, "
-        f"7B bf16 weights ({t_q - t_llm:.1f}s), two 7B int8 trees ({time.perf_counter() - t_q:.1f}s)")
+        f"7B bf16 weights ({t_q - t_llm:.1f}s), two 7B int8 trees ({t_1b - t_q:.1f}s), "
+        f"1B bf16 weights ({time.perf_counter() - t_1b:.1f}s)")
 
     for k in kernels().values():
         k.launches = 0
@@ -794,6 +1022,20 @@ def run_main_path(dev):
         res = anticipate.run(args, llm=qllm)
         torch.cuda.synchronize()
         modes[mode] = (res, time.perf_counter() - t_m, qllm.llama.decode_steps)
+    fused = {}
+    k2 = kernels()["decode_attention"]
+    for setting, env in FUSION_SETTINGS.items():
+        # each setting starts as a fresh model would: no prefixes, the
+        # sampler's seed, so that the settings' answers can be compared
+        llm_1b.llama._prefix_caches.clear()
+        llm_1b.llama.generator = make_generator(1, dev)
+        k2_before, steps0 = k2.launches, llm_1b.llama.decode_steps
+        t_m = time.perf_counter()
+        with gate_env(env):
+            res = anticipate.run(args_1b, llm=llm_1b)
+            torch.cuda.synchronize()
+        fused[setting] = (res, time.perf_counter() - t_m, llm_1b.llama.decode_steps - steps0,
+                          k2.launches - k2_before)
     launches = {name: k.launches for name, k in kernels().items()}
 
     raw = json.loads((WORK / "pipeline" / "perframe_predictions.json").read_text())
@@ -801,7 +1043,8 @@ def run_main_path(dev):
     if set(agg) != set(raw) or any(len(a["pred"]) != len(a["changes_pred"]) for a in agg.values()):
         raise AssertionError("aggregated sequences malformed")
     n_steps = sum(len(a["pred"]) for a in agg.values())
-    for mode, res in (("bf16", result), *((k, v[0]) for k, v in modes.items())):
+    for mode, res in (("bf16", result), *((k, v[0]) for k, v in modes.items()),
+                      *((f"1b_{k}", v[0]) for k, v in fused.items())):
         m = res.metrics
         if m is None or m["samples"] != n_steps or not 0.0 <= m["accuracy"] <= 1.0:
             raise AssertionError(f"anticipation metrics malformed ({mode}): {m}")
@@ -819,6 +1062,14 @@ def run_main_path(dev):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    if fused["default"][3] != 0:
+        raise AssertionError(f"the 1B default setting launched K2 {fused['default'][3]} times")
+    # K8u computes K8-res's bits (the same kernels, the new row read from
+    # k_new instead of the cache), so those two settings sample the same
+    # tokens; PREGO_FUSED_LAYER=0 rounds the norm in another kernel
+    same_as_default = {
+        setting: sum(a == b for v in agg for a, b in zip(res.preds[v], fused["default"][0].preds[v]))
+        for setting, (res, *_) in fused.items()}
     st = trained.stats
     report = {
         "test_videos": len(raw), "test_frames": sum(lengths.values()),
@@ -838,10 +1089,17 @@ def run_main_path(dev):
                    "decode_steps": steps,
                    "verdict_metrics": {k: res.metrics[k] for k in ("samples", "accuracy", "f1")}}
             for mode, (res, wall, steps) in modes.items()},
+        "fused_1b_settings": {
+            setting: {"anticipation_s": wall, "llm_calls": len(res.llm_latencies),
+                      "s_per_llm_call": wall / max(len(res.llm_latencies), 1),
+                      "decode_steps": steps, "k2_launches": k2_n,
+                      "sets_equal_to_default": same_as_default[setting],
+                      "verdict_metrics": {k: res.metrics[k] for k in ("samples", "accuracy", "f1")}}
+            for setting, (res, wall, steps, k2_n) in fused.items()},
         "launches": launches,
     }
     log(f"main path: {json.dumps(report)}")
-    return {"bf16": llm, **qllms}, cfg, launches, report
+    return {"bf16": llm, **qllms}, llm_1b, cfg, launches, report
 
 
 # ---- 4. train step and decode step times ----
@@ -934,31 +1192,52 @@ def profile_steps(step, n):
 
 
 @torch.no_grad()
-def decode_step_ms(llms, dev):
-    """ms per 7B decode step at B 1 and 8, at position 128, for each mode;
-    at B 1 also the device busy share and the costliest device ops of a
-    few steps under torch.profiler."""
+def _decode_steps(lm, label, dev, out, profile=True):
+    """ms per decode step of ``lm`` at B 1 and 8, at position 128; at B 1
+    also the device busy share and the costliest device ops of a few steps
+    under torch.profiler. Adds them to ``out`` under ``label`` (a list of
+    readings where the label repeats)."""
     from prego_tpu_torch.models.llama.model import forward, init_cache
 
+    for B in (1, 8):
+        cache = init_cache(lm.config, B, lm.dtype, dev, quantized=lm.kv_quant)
+        toks = torch.randint(0, 256, (B, 128), device=dev)
+        forward(lm.params, toks, 0, cache, lm.config, lm.rope)  # 128 positions filled
+        nxt = toks[:, -1:]
+        step = lambda *_: forward(lm.params, nxt, 128, cache, lm.config, lm.rope)
+        ms = time_ms(step, 20)
+        out.setdefault(f"{label}_b{B}", []).append(ms)
+        log(f"{label} decode step, B={B}, at position 128: {ms:.3f} ms")
+        if B == 1 and profile:
+            prof_ms, busy, top = profile_steps(step, 5)
+            out[f"{label}_b1_profiled"] = {"ms": prof_ms, "device_busy": busy,
+                                           "top_device_ms": top}
+            log(f"  under the profiler {prof_ms:.3f} ms/step, device busy "
+                f"{'not measured' if busy is None else f'{busy:.3f}'}; device ms/step by op: "
+                f"{json.dumps({k[:60]: round(v, 4) for k, v in top.items()})}")
+
+
+def decode_step_ms(llms, llm_1b, dev, rounds=6):
+    """Decode steps of the 7B modes, and of the 1B model in four fusion
+    settings (the three of the main path and PREGO_FUSED_ATTN_WO=0, the
+    unfused K2 sequence) in ``rounds`` rounds, the order reversed every
+    other round (the host clock moves with the host's load), the first
+    round with the profiler; the median and range of each."""
     out = {}
     for mode, llm in llms.items():
-        lm = llm.llama
+        _decode_steps(llm.llama, f"7B {mode}", dev, out)
+    settings = [*FUSION_SETTINGS.items(), ("attn_wo_off", {"PREGO_FUSED_ATTN_WO": "0"})]
+    for rnd in range(rounds):
+        for setting, env in (settings if rnd % 2 == 0 else settings[::-1]):
+            with gate_env(env):
+                _decode_steps(llm_1b.llama, f"1B {setting}", dev, out, profile=rnd == 0)
+    for setting, _ in settings:
         for B in (1, 8):
-            cache = init_cache(lm.config, B, lm.dtype, dev, quantized=lm.kv_quant)
-            toks = torch.randint(0, 256, (B, 128), device=dev)
-            forward(lm.params, toks, 0, cache, lm.config, lm.rope)  # 128 positions filled
-            nxt = toks[:, -1:]
-            step = lambda *_: forward(lm.params, nxt, 128, cache, lm.config, lm.rope)
-            ms = time_ms(step, 20)
-            out[f"{mode}_b{B}"] = ms
-            log(f"7B {mode} decode step, B={B}, at position 128: {ms:.3f} ms")
-            if B == 1:
-                prof_ms, busy, top = profile_steps(step, 5)
-                out[f"{mode}_b1_profiled"] = {"ms": prof_ms, "device_busy": busy,
-                                              "top_device_ms": top}
-                log(f"  under the profiler {prof_ms:.3f} ms/step, device busy "
-                    f"{'not measured' if busy is None else f'{busy:.3f}'}; device ms/step by op: "
-                    f"{json.dumps({k[:60]: round(v, 4) for k, v in top.items()})}")
+            xs = sorted(out[f"1B {setting}_b{B}"])
+            med = (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
+            out[f"1B {setting}_b{B}_median"] = med
+            log(f"1B {setting} decode step, B={B}: median {med:.3f} ms over {len(xs)} rounds "
+                f"(min {xs[0]:.3f}, max {xs[-1]:.3f})")
     return out
 
 
@@ -977,11 +1256,13 @@ def main():
     rows = check_kernels(dev)
     q_rows, q_cases = check_quant_kernels(dev)
     rows.update(q_rows)
+    f_rows, f_cases = check_fused_kernels(dev)
+    rows.update(f_rows)
     layer = gru_layer_yardstick(dev)
     cpu = check_against_cpu(dev)
-    llms, cfg, launches, report = run_main_path(dev)
+    llms, llm_1b, cfg, launches, report = run_main_path(dev)
     train = train_step_ms(cfg, dev)
-    decode = decode_step_ms(llms, dev)
+    decode = decode_step_ms(llms, llm_1b, dev)
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
     jax_package = sorted(m for m in sys.modules if m == "prego_tpu" or m.startswith("prego_tpu."))
@@ -989,7 +1270,7 @@ def main():
         raise AssertionError(f"the port loaded modules of the JAX package: {jax_package}")
 
     log(json.dumps({"summary": {**report, "cpu_checks": cpu, "gru_layer": layer, **train,
-                                "quant_kernel_cases": q_cases,
+                                "quant_kernel_cases": q_cases, "fused_kernel_cases": f_cases,
                                 "decode_ms_per_step": decode,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
                                 "total_s": time.perf_counter() - t_start}}))

@@ -1,11 +1,16 @@
-// K7a: the decode FFN sub-layer h + FFN(rms_norm(h)) on Hopper.
+// K7a: the decode FFN sub-layer h + FFN(rms_norm(h)) on Hopper, and K7,
+// the FFN alone.
 //
-// Replaces prego_tpu/ops/fused_ffn.py::fused_ffn_block (Pallas body
+// K7a replaces prego_tpu/ops/fused_ffn.py::fused_ffn_block (Pallas body
 // _fused_ffn_block_kernel). For M decode rows:
 //   xn  = bf16(h * rsqrt(mean(h^2) + eps)) * norm_w    (f32 stats, bf16 scale)
 //   a   = bf16(silu(xn.W1) * (xn.W3))                   (f32 accumulate)
 //   out = h + bf16(a.W2)                                (residual in h's dtype)
 // with w13 = [W1 | W3] stored (D, 2F) and w2 (F, D), both bf16.
+// K7 replaces ::fused_ffn (Pallas body _fused_ffn_kernel): the same up and
+// down phases on an x that comes in normed, without the norm phase and the
+// residual; out = a.W2 in f32. One set of kernels serves both, K7 chosen
+// by the compile-time flag kBlock = false.
 //
 // What bounds it here: at M <= 8 rows this is pure weight streaming.
 // Every weight is used M times, so the sub-layer reads 3 x D x F bf16
@@ -19,10 +24,11 @@
 // down projection in VMEM; here blocks run in parallel and in no order, and
 // no float atomics are used, so the F reduction of W2 is split across
 // blocks and summed in a fixed order by a last small pass.
-//   0. norm (one block per row): xn, stored transposed (D, M), so that one
-//      vector load gives a weight row's M activations.
+//   0. norm (one block per row, K7a only): xn, stored transposed (D, M),
+//      so that one vector load gives a weight row's M activations.
 //   1. up (grid F / 32): each block copies xn into shared memory (M x 8
-//      KB at D = 4096, from L2), then computes 32 gate and 32 up columns
+//      KB at D = 4096, from L2; K7 reads x's rows and stores them
+//      transposed, as phase 0 would), then computes 32 gate and 32 up columns
 //      of xn.w13 (per weight row, 8 threads x 4 columns read 64 contiguous
 //      gate bytes and 8 more the matching up bytes; 16 row groups), reduces
 //      across row groups with shuffles and shared memory, and writes
@@ -30,7 +36,8 @@
 //      row of a as M contiguous values.
 //   2. down (grid D / 64 x S splits of F): partial sums of a.W2 for 64
 //      output columns over one split, f32, to a (S, M, D) scratch.
-//   3. reduce (one thread per output): out = h + bf16(sum over splits).
+//   3. reduce (one thread per output): out = h + bf16(sum over splits)
+//      (K7a), or the f32 sum (K7).
 #include "common.cuh"
 
 namespace {
@@ -112,11 +119,13 @@ __global__ void __launch_bounds__(kThreads) ffn_norm_kernel(
     }
 }
 
-template <int M>
+// kTransposed: x is xn_t (D, M) from the norm phase (K7a); else x is the
+// normed rows (M, D) (K7), stored transposed into shared memory here
+template <int M, bool kTransposed>
 __global__ void __launch_bounds__(kThreads) ffn_up_kernel(
-    const __nv_bfloat16* __restrict__ xn_t,  // (D, M)
-    const __nv_bfloat16* __restrict__ w13,   // (D, 2F)
-    __nv_bfloat16* __restrict__ a_t,         // (F, M) scratch
+    const __nv_bfloat16* __restrict__ x,    // (D, M), or (M, D)
+    const __nv_bfloat16* __restrict__ w13,  // (D, 2F)
+    __nv_bfloat16* __restrict__ a_t,        // (F, M) scratch
     int D, int F) {
     extern __shared__ __align__(16) unsigned char smem[];
     __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem);  // [D][M]: a row's M values
@@ -124,8 +133,17 @@ __global__ void __launch_bounds__(kThreads) ffn_up_kernel(
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
     // the normed activations, 16 bytes a load (D x M is a multiple of 8)
-    for (int i = tid; i < D * M / 8; i += kThreads)
-        reinterpret_cast<uint4*>(xn)[i] = reinterpret_cast<const uint4*>(xn_t)[i];
+    for (int i = tid; i < D * M / 8; i += kThreads) {
+        const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
+        if constexpr (kTransposed) {
+            reinterpret_cast<uint4*>(xn)[i] = raw;
+        } else {  // 8 values of row m from column d on
+            const int m = (i * 8) / D, d = (i * 8) % D;
+            const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) xn[(d + j) * M + m] = v[j];
+        }
+    }
     __syncthreads();
 
     // xn . w13 for this block's 32 gate and 32 up columns: in each group
@@ -232,45 +250,73 @@ __global__ void __launch_bounds__(kThreads) ffn_down_kernel(
     }
 }
 
-// out = h + bf16(sum over splits), splits summed in order
-__global__ void __launch_bounds__(kThreads) ffn_residual_kernel(
+// out = h + bf16(sum over splits) (kBlock), or the f32 sum; splits
+// summed in order
+template <bool kBlock>
+__global__ void __launch_bounds__(kThreads) ffn_reduce_kernel(
     const __nv_bfloat16* __restrict__ h, const float* __restrict__ part,
-    __nv_bfloat16* __restrict__ out, int MD, int S) {
+    void* __restrict__ out, int MD, int S) {
     const int i = blockIdx.x * kThreads + threadIdx.x;
     if (i >= MD) return;
     float y = 0.f;
     for (int s = 0; s < S; ++s) y += part[static_cast<size_t>(s) * MD + i];
-    out[i] = f2bf(bf2f(h[i]) + round_bf16(y));
+    if constexpr (kBlock)
+        static_cast<__nv_bfloat16*>(out)[i] = f2bf(bf2f(h[i]) + round_bf16(y));
+    else
+        static_cast<float*>(out)[i] = y;
 }
 
-template <int M>
+// kBlock (K7a): h is the un-normed stream, normed into xn_t first; else
+// (K7) h is the normed x and norm_w and xn_t are unused
+template <int M, bool kBlock>
 int launch(const void* h, const void* norm_w, const void* w13, const void* w2, void* xn_t,
            void* a_t, void* part, void* out, int D, int F, int S, float eps,
            cudaStream_t stream) {
     const size_t xn_bytes = sizeof(__nv_bfloat16) * M * D;
     const size_t red_bytes = sizeof(float) * kWarps * M * 2 * kUpCols;
     const size_t smem = xn_bytes > red_bytes ? xn_bytes : red_bytes;
-    auto up = ffn_up_kernel<M>;
+    auto up = ffn_up_kernel<M, kBlock>;
     cudaError_t err = cudaFuncSetAttribute(up, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    ffn_norm_kernel<<<M, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(norm_w),
-        static_cast<__nv_bfloat16*>(xn_t), M, D, eps);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if constexpr (kBlock) {
+        ffn_norm_kernel<<<M, kThreads, 0, stream>>>(
+            static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(norm_w),
+            static_cast<__nv_bfloat16*>(xn_t), M, D, eps);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
     up<<<(F + kUpCols - 1) / kUpCols, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(xn_t), static_cast<const __nv_bfloat16*>(w13),
-        static_cast<__nv_bfloat16*>(a_t), D, F);
+        static_cast<const __nv_bfloat16*>(kBlock ? xn_t : h),
+        static_cast<const __nv_bfloat16*>(w13), static_cast<__nv_bfloat16*>(a_t), D, F);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const int rows_per_split = (F + S - 1) / S;
     ffn_down_kernel<M><<<dim3((D + kDownCols - 1) / kDownCols, S), kThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(a_t), static_cast<const __nv_bfloat16*>(w2),
         static_cast<float*>(part), D, F, rows_per_split);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ffn_residual_kernel<<<(M * D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(h), static_cast<const float*>(part),
-        static_cast<__nv_bfloat16*>(out), M * D, S);
+    ffn_reduce_kernel<kBlock><<<(M * D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(h), static_cast<const float*>(part), out, M * D, S);
     return cudaGetLastError();
+}
+
+template <bool kBlock>
+int dispatch(const void* h, const void* norm_w, const void* w13, const void* w2, void* xn_t,
+             void* a_t, void* part, void* out, int M, int D, int F, int splits, float eps,
+             void* stream) {
+    if (M < 1 || M > kMaxM || D <= 0 || F <= 0 || D % 8 != 0 || F % 4 != 0 || splits < 1)
+        return PREGO_BAD_ARGUMENT;
+    if (sizeof(__nv_bfloat16) * static_cast<size_t>(M) * D > 227 * 1024) return PREGO_BAD_ARGUMENT;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (M) {
+        case 1: return launch<1, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+        case 2: return launch<2, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+        case 3: return launch<3, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+        case 4: return launch<4, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+        case 5: return launch<5, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+        case 6: return launch<6, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+        case 7: return launch<7, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+        default: return launch<8, kBlock>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
+    }
 }
 
 }  // namespace
@@ -282,18 +328,15 @@ PREGO_EXPORT int prego_fused_ffn_block(const void* h, const void* norm_w, const 
                                        const void* w2, void* xn_t, void* a_t, void* part,
                                        void* out, int M, int D, int F, int splits, float eps,
                                        void* stream) {
-    if (M < 1 || M > kMaxM || D <= 0 || F <= 0 || D % 8 != 0 || F % 4 != 0 || splits < 1)
-        return PREGO_BAD_ARGUMENT;
-    if (sizeof(__nv_bfloat16) * static_cast<size_t>(M) * D > 227 * 1024) return PREGO_BAD_ARGUMENT;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (M) {
-        case 1: return launch<1>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-        case 2: return launch<2>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-        case 3: return launch<3>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-        case 4: return launch<4>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-        case 5: return launch<5>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-        case 6: return launch<6>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-        case 7: return launch<7>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-        default: return launch<8>(h, norm_w, w13, w2, xn_t, a_t, part, out, D, F, splits, eps, s);
-    }
+    return dispatch<true>(h, norm_w, w13, w2, xn_t, a_t, part, out, M, D, F, splits, eps, stream);
+}
+
+// K7: out (M, D) f32 = silu(x.W1) * (x.W3) . W2 for x (M, D), w13 (D, 2F),
+// w2 (F, D), all bf16. Scratch: a_t (F, M) bf16, part (splits, M, D) f32.
+// The bounds of K7a's.
+PREGO_EXPORT int prego_fused_ffn(const void* x, const void* w13, const void* w2, void* a_t,
+                                 void* part, void* out, int M, int D, int F, int splits,
+                                 void* stream) {
+    return dispatch<false>(x, nullptr, w13, w2, nullptr, a_t, part, out, M, D, F, splits, 0.f,
+                           stream);
 }

@@ -18,10 +18,37 @@ K/V into the cache tensors in place (``forward`` returns the same
 tensors), which keeps one copy of the cache in device memory. Callers
 that must keep a cache unchanged (the prefix LRU) pass a clone.
 
-Decode (one token per row) runs the ported kernels: K2 bounded decode
-attention (K3 over an int8 cache) and, with bf16 weights, K7a, the fused
-FFN sub-layer. Prefill attention, bf16 projections and sampling are plain
-PyTorch, as they are plain XLA in the JAX package.
+Decode (one token per row) runs the ported kernels, chosen in the JAX
+package's order (prego_tpu/models/llama/model.py:487-518, 566-602,
+678-699, 777-791) by its four bf16 fusion gates, read from the
+environment once per ``forward`` call with the JAX package's defaults
+(``fusion_gates``):
+
+  PREGO_FUSED_ATTN_WO (on)     K8: attention and the wo projection in one
+                               call, for a bf16 wo of at most 4.5M elements
+                               (the 1B-class shapes; 7B's 4096^2 keeps K2)
+  PREGO_FUSED_LAYER (on)       the residual add inside the kernels: K8 with
+                               its residual epilogue, and K7a
+  PREGO_FUSED_FFN (on)         K7a, the FFN sub-layer with its norm and
+                               residual; under PREGO_FUSED_LAYER=0, K7, the
+                               FFN alone, after a separate rms_norm
+  PREGO_FUSED_CACHE_UPD (off)  K8u: this token's cache write inside K8 with
+                               the residual (with the two gates above on)
+
+So a 1B-class bf16 decode layer runs K8-res and K7a by default, K8 (f32
+out, then the cast and the add) and rms_norm + K7 under
+PREGO_FUSED_LAYER=0, K8u and K7a under PREGO_FUSED_CACHE_UPD=1, and K2,
+the wo product and the add under PREGO_FUSED_ATTN_WO=0. An int8 KV cache
+is tested first, so K3 runs over it whatever the gates say; an int8 wo
+never takes K8 or K8u. The JAX package also requires its
+``_flash_decode_supported`` (a TPU backend, hd % 128 == 0, max_seq_len %
+256 == 0) before any decode kernel; the port's decode branch has no such
+condition (K2 runs at every decode step), and K8 takes the same: the
+wrappers raise on the card for what the kernels cannot take (R > 8, hd
+not a multiple of 16 or above 256, D not a multiple of 8). The dispatch is
+the same on the CPU, where each wrapper runs its plain version.
+Prefill attention, bf16 projections and sampling are plain PyTorch, as
+they are plain XLA in the JAX package.
 
 Quantized serving (``quantize_params``, ``init_params_quantized``): each
 projection leaf becomes ``{"q": int8 (K, N), "s": f32 (1, N)}``, plus an
@@ -40,15 +67,19 @@ dequantizes it for the masked einsum.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import os
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from prego_tpu_torch.models.llama.config import LlamaConfig
 from prego_tpu_torch.ops.decode_attention import decode_attention
 from prego_tpu_torch.ops.decode_attention_q8 import decode_attention_q8
+from prego_tpu_torch.ops.decode_attention_wo import (
+    decode_attention_wo, decode_attention_wo_res_upd,
+)
 from prego_tpu_torch.ops.dense import bmm_f32, mm_f32
-from prego_tpu_torch.ops.fused_ffn import fused_ffn_block, rms_norm
+from prego_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_block, rms_norm
 from prego_tpu_torch.ops.quant import (
     int8_matmul, int8xint8_matmul, quantize_activations, quantize_weight,
 )
@@ -62,6 +93,41 @@ __all__ = [
     "init_params", "init_params_quantized", "quantize_params", "fuse_projections",
     "init_cache", "clone_cache", "rms_norm", "precompute_rope", "apply_rope", "forward",
 ]
+
+
+# the largest wo that K8 / K8u take: the JAX kernel keeps wo resident in
+# VMEM beside the K/V buffers (model.py:582), and the port keeps its gate
+WO_FUSE_MAX = 4_500_000
+
+
+class FusionGates(NamedTuple):
+    """The bf16 decode fusion gates, as the JAX package reads them."""
+
+    ffn: bool  # PREGO_FUSED_FFN: K7a (and K7 under layer=False)
+    attn_wo: bool  # PREGO_FUSED_ATTN_WO: K8
+    layer: bool  # PREGO_FUSED_LAYER: residual epilogues (K8-res, K7a)
+    cache_upd: bool  # PREGO_FUSED_CACHE_UPD: K8u
+
+
+def _fused_ffn_supported() -> bool:
+    return os.environ.get("PREGO_FUSED_FFN", "1") != "0"  # kill switch
+
+
+def _fused_attn_wo_supported() -> bool:
+    return os.environ.get("PREGO_FUSED_ATTN_WO", "1") != "0"  # kill switch
+
+
+def _fused_layer_supported() -> bool:
+    return os.environ.get("PREGO_FUSED_LAYER", "1") != "0"  # kill switch
+
+
+def _fused_cache_upd_supported() -> bool:
+    return os.environ.get("PREGO_FUSED_CACHE_UPD", "0") == "1"  # opt-in
+
+
+def fusion_gates() -> FusionGates:
+    return FusionGates(_fused_ffn_supported(), _fused_attn_wo_supported(),
+                       _fused_layer_supported(), _fused_cache_upd_supported())
 
 
 def is_quantized(leaf) -> bool:
@@ -315,6 +381,8 @@ def _attention(
     cache_v,
     config: LlamaConfig,
     valid: Optional[torch.Tensor],  # (B,) int32 decode bound, start_pos + 1
+    pos: Optional[torch.Tensor],  # (B,) int32 decode position, start_pos (for K8u)
+    gates: FusionGates,
 ) -> torch.Tensor:
     """Returns h + attention(rms_norm(h)), writing this step's K/V into
     the cache at [start_pos, start_pos + S)."""
@@ -331,21 +399,36 @@ def _attention(
     xv = xqkv[..., (H + KV) * hd :].reshape(B, S, KV, hd)
 
     kv_quant = isinstance(cache_k, dict)
+    wo = p["wo"]
+    q = xq.reshape(B, S, KV, H // KV, hd)
+    k_new, v_new = xk.transpose(1, 2), xv.transpose(1, 2)  # (B, KV, S, hd)
+    # K8 and K8u: a bf16 wo small enough, over a bf16 cache
+    fuse_wo = (S == 1 and not kv_quant and not is_quantized(wo) and wo.numel() <= WO_FUSE_MAX
+               and gates.attn_wo)
+    if fuse_wo and gates.layer and gates.cache_upd:
+        # the whole tail in one call: cache write, attention, wo, residual
+        h_next, _, _ = decode_attention_wo_res_upd(
+            q[:, 0].contiguous(), h, k_new.to(cache_k.dtype), v_new.to(cache_v.dtype),
+            cache_k, cache_v, pos, wo)
+        return h_next
+
     span = slice(start_pos, start_pos + S)
-    for cache, new in ((cache_k, xk), (cache_v, xv)):
-        new = new.transpose(1, 2)  # (B, KV, S, hd)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
         if kv_quant:  # one scale per new position and head
             cache["q"][:, :, span], cache["s"][:, :, span] = _kv_quantize(new)
         else:
             cache[:, :, span] = new.to(cache.dtype)
 
-    q = xq.reshape(B, S, KV, H // KV, hd)
     if S == 1:
-        # one token per row: the bounded decode kernel (K3 over int8, K2)
+        # one token per row: the bounded decode kernels (K3 over int8, K8, K2)
         q1 = q[:, 0].contiguous()
         if kv_quant:
             out = decode_attention_q8(q1, cache_k["q"], cache_k["s"], cache_v["q"],
                                       cache_v["s"], valid)
+        elif fuse_wo:
+            if gates.layer:  # the residual add in the kernel's epilogue
+                return decode_attention_wo(q1, cache_k, cache_v, valid, wo, residual=h)
+            return h + decode_attention_wo(q1, cache_k, cache_v, valid, wo).to(x.dtype)
         else:
             out = decode_attention(q1, cache_k, cache_v, valid)
         out = out.reshape(B, 1, H * hd).to(x.dtype)
@@ -363,12 +446,16 @@ def _attention(
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = bmm_f32(probs, v_full[:, :, None]).to(x.dtype)  # (B, KV, R, S, hd)
         out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-    return h + _dense(out, p["wo"]).to(x.dtype)
+    return h + _dense(out, wo).to(x.dtype)
 
 
-def _feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """silu(x.w1) * (x.w3) cast to x's dtype, then .w2, in x's dtype."""
+def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates) -> torch.Tensor:
+    """silu(x.w1) * (x.w3) cast to x's dtype, then .w2, in x's dtype.
+    Decode rows with bf16 weights in the fused layout run the K7 wrapper."""
     if "w13" in p:
+        if not is_quantized(p["w13"]) and x.shape[1] == 1 and gates.ffn:
+            B, S, D = x.shape
+            return fused_ffn(x.reshape(B * S, D), p["w13"], p["w2"]).reshape(B, S, D).to(x.dtype)
         g13 = _dense(x, p["w13"])
         F = g13.shape[-1] // 2
         gate, up = g13[..., :F], g13[..., F:]
@@ -378,18 +465,20 @@ def _feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     return _dense(act, p["w2"]).to(x.dtype)
 
 
-def _ffn_sublayer(layer: Params, h: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+def _ffn_sublayer(
+    layer: Params, h: torch.Tensor, config: LlamaConfig, gates: FusionGates
+) -> torch.Tensor:
     """h + ffn(rms_norm(h, ffn_norm)). Decode rows with bf16 weights in the
-    fused layout run the K7a wrapper; prefill and int8 weights run the op
-    sequence unfused."""
+    fused layout run the K7a wrapper (with the FFN and layer gates on);
+    everything else runs the op sequence, which may reach K7."""
     p = layer["feed_forward"]
     nw = layer["ffn_norm"]
     B, S, D = h.shape
-    if "w13" in p and not is_quantized(p["w13"]) and S == 1:
+    if "w13" in p and not is_quantized(p["w13"]) and S == 1 and gates.ffn and gates.layer:
         return fused_ffn_block(h.reshape(B, D), nw, p["w13"], p["w2"], config.norm_eps).reshape(
             B, 1, D
         )
-    return h + _feed_forward(p, rms_norm(h, nw, config.norm_eps))
+    return h + _feed_forward(p, rms_norm(h, nw, config.norm_eps), gates)
 
 
 def forward(
@@ -412,15 +501,17 @@ def forward(
     V = emb.shape[0]
     # negative ids (the -1 pad) wrap like jnp.take's index normalisation
     h = emb[torch.where(tokens < 0, tokens + V, tokens)]
-    valid = (
-        torch.full((B,), start_pos + 1, dtype=torch.int32, device=tokens.device)
-        if S == 1 else None
-    )
+    gates = fusion_gates()  # once per call, not per layer
+    valid = pos = None
+    if S == 1:
+        valid = torch.full((B,), start_pos + 1, dtype=torch.int32, device=tokens.device)
+        if gates.cache_upd:
+            pos = torch.full((B,), start_pos, dtype=torch.int32, device=tokens.device)
     for i, layer in enumerate(params["layers"]):
         h = _attention(
             layer["attention"], h, layer["attention_norm"], start_pos, cos, sin,
-            cache["k"][i], cache["v"][i], config, valid,
+            cache["k"][i], cache["v"][i], config, valid, pos, gates,
         )
-        h = _ffn_sublayer(layer, h, config)
+        h = _ffn_sublayer(layer, h, config, gates)
     h = rms_norm(h, params["norm"], config.norm_eps)
     return _dense(h, params["output"]), cache

@@ -1,7 +1,7 @@
 """Tensor ops of the port. Kernel wrappers (gru_cuda, gru_cuda_vjp,
-decode_attention, decode_attention_q8, fused_ffn, quant) launch their CUDA
-kernel on a CUDA tensor and run their plain PyTorch version on a CPU
-tensor."""
+decode_attention, decode_attention_wo, decode_attention_q8, fused_ffn,
+quant) launch their CUDA kernel on a CUDA tensor and run their plain
+PyTorch version on a CPU tensor."""
 
 from prego_tpu_torch.ops.gru import gru_cell, gru_scan, init_gru_params
 
@@ -11,7 +11,8 @@ __all__ = ["gru_cell", "gru_scan", "init_gru_params", "kernels"]
 def kernels():
     """The CudaKernel of every ported TPU kernel, by name."""
     from prego_tpu_torch.ops import (
-        decode_attention, decode_attention_q8, fused_ffn, gru_cuda, gru_cuda_vjp, quant,
+        decode_attention, decode_attention_q8, decode_attention_wo, fused_ffn, gru_cuda,
+        gru_cuda_vjp, quant,
     )
 
     return {
@@ -22,4 +23,7 @@ def kernels():
         "decode_attention_q8": decode_attention_q8.KERNEL,
         "int8_matmul": quant.KERNEL_W8,
         "int8xint8_matmul": quant.KERNEL_W8A8,
+        "decode_attention_wo": decode_attention_wo.KERNEL,
+        "decode_attention_wo_res_upd": decode_attention_wo.KERNEL_UPD,
+        "fused_ffn": fused_ffn.KERNEL_FFN,
     }

@@ -60,7 +60,7 @@ class CudaKernel:
         self._lib = None
 
     def _sources(self) -> List[Path]:
-        return [self.source, CSRC / "common.cuh"]
+        return [self.source, *sorted(CSRC.glob("*.cuh"))]  # any header may be included
 
     def library_path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

@@ -1,15 +1,19 @@
-"""K7a: the decode FFN sub-layer in CUDA (``csrc/fused_ffn.cu``).
+"""K7a and K7: the decode FFN in CUDA (``csrc/fused_ffn.cu``).
 
-Port of prego_tpu/ops/fused_ffn.py::fused_ffn_block: returns
+K7a, port of prego_tpu/ops/fused_ffn.py::fused_ffn_block: returns
 ``h + ffn(rms_norm(h, norm_weight, eps))`` in h's dtype, with w13 the
 fused [w1 | w3] (D, 2F) and w2 (F, D). The dtype walk is the JAX one:
 f32 mean square and rsqrt, normed cast to h's dtype and then scaled by
 the weight in h's dtype, f32-accumulated products, the SwiGLU activation
 cast to h's dtype, and the residual add in h's dtype.
 
-On a CUDA tensor ``fused_ffn_block`` launches the kernel (bf16, decode
-rows M <= 8); on a CPU tensor it runs ``fused_ffn_block_reference``, the
-unfused op sequence ``rms_norm -> feed_forward -> + h``.
+K7, port of ::fused_ffn: ``ffn(x)`` alone, silu(x.w1) * (x.w3) cast to
+x's dtype, then .w2, returned as (M, D) f32 (the caller casts and adds).
+
+On a CUDA tensor ``fused_ffn_block`` and ``fused_ffn`` launch their kernel
+(bf16; the kernel takes up to 8 decode rows a call, more go in calls of
+8); on a CPU tensor they run ``fused_ffn_block_reference``, the unfused op
+sequence ``rms_norm -> feed_forward -> + h``, and ``fused_ffn_reference``.
 """
 
 from __future__ import annotations
@@ -26,8 +30,12 @@ KERNEL = CudaKernel(
     "fused_ffn.cu",
     {"prego_fused_ffn_block": [c_ptr] * 8 + [c_int] * 4 + [c_float, c_ptr]},
 )
+# K7 lives in the same library; its own entry keeps its own launch count
+KERNEL_FFN = CudaKernel(
+    "fused_ffn", "fused_ffn.cu", {"prego_fused_ffn": [c_ptr] * 6 + [c_int] * 4 + [c_ptr]},
+)
 
-MAX_DECODE_ROWS = 8  # the main path's decode M is at most max_batch_size = 8
+MAX_DECODE_ROWS = 8  # rows one kernel call takes (the main path's decode M is at most 8)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -46,11 +54,48 @@ def feed_forward_reference(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor)
     return mm_f32(act, w2)
 
 
+def fused_ffn_reference(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7."""
+    return feed_forward_reference(x, w13, w2)
+
+
 def fused_ffn_block_reference(
     h: torch.Tensor, norm_weight: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor, eps: float
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same dtype walk."""
     return h + feed_forward_reference(rms_norm(h, norm_weight, eps), w13, w2).to(h.dtype)
+
+
+def _check(name, x, w13, w2):
+    """Raise unless the kernel takes these operands; returns (M, D, F, the
+    number of blocks sharing the F reduction of W2)."""
+    M, D = x.shape
+    F = w2.shape[0]
+    if M < 1 or D % 8 or F % 4:
+        raise ValueError(f"{name}: M={M} (>= 1), D={D} (a multiple of 8), F={F} (of 4)")
+    check_cuda_tensor("x", x, torch.bfloat16)
+    check_cuda_tensor("w13", w13, torch.bfloat16, (D, 2 * F))
+    check_cuda_tensor("w2", w2, torch.bfloat16, (F, D))
+    return M, D, F, max(1, min(8, F // 128))
+
+
+def fused_ffn(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """x (M, D) already normed -> silu(x.w1) * (x.w3) . w2 as (M, D) f32."""
+    if not x.is_cuda:
+        return fused_ffn_reference(x, w13, w2)
+    M, D, F, splits = _check("fused_ffn", x, w13, w2)
+    if M > MAX_DECODE_ROWS:
+        return torch.cat([fused_ffn(x[i : i + MAX_DECODE_ROWS], w13, w2)
+                          for i in range(0, M, MAX_DECODE_ROWS)])
+    out = torch.empty(M, D, dtype=torch.float32, device=x.device)
+    a_t = torch.empty(F, M, dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(splits, M, D, dtype=torch.float32, device=x.device)
+    KERNEL_FFN.launches += 1
+    KERNEL_FFN.call(
+        "prego_fused_ffn", x.data_ptr(), w13.data_ptr(), w2.data_ptr(), a_t.data_ptr(),
+        part.data_ptr(), out.data_ptr(), M, D, F, splits, stream_ptr(x.device),
+    )
+    return out
 
 
 def fused_ffn_block(
@@ -62,17 +107,11 @@ def fused_ffn_block(
 ) -> torch.Tensor:
     if not h.is_cuda:
         return fused_ffn_block_reference(h, norm_weight, w13, w2, eps)
-    M, D = h.shape
-    F = w2.shape[0]
-    if not 1 <= M <= MAX_DECODE_ROWS:
-        raise ValueError(f"fused_ffn_block: M={M} rows, the kernel takes 1..{MAX_DECODE_ROWS}")
-    if D % 8 or F % 4:
-        raise ValueError(f"fused_ffn_block: D={D} must be a multiple of 8 and F={F} of 4")
-    check_cuda_tensor("h", h, torch.bfloat16)
+    M, D, F, splits = _check("fused_ffn_block", h, w13, w2)
     check_cuda_tensor("norm_weight", norm_weight, torch.bfloat16, (D,))
-    check_cuda_tensor("w13", w13, torch.bfloat16, (D, 2 * F))
-    check_cuda_tensor("w2", w2, torch.bfloat16, (F, D))
-    splits = max(1, min(8, F // 128))  # blocks sharing the F reduction of W2
+    if M > MAX_DECODE_ROWS:
+        return torch.cat([fused_ffn_block(h[i : i + MAX_DECODE_ROWS], norm_weight, w13, w2, eps)
+                          for i in range(0, M, MAX_DECODE_ROWS)])
     out = torch.empty_like(h)
     xn_t = torch.empty(D, M, dtype=torch.bfloat16, device=h.device)
     a_t = torch.empty(F, M, dtype=torch.bfloat16, device=h.device)

@@ -16,6 +16,7 @@ import torch
 
 from prego_tpu_torch.ops import decode_attention as da
 from prego_tpu_torch.ops import decode_attention_q8 as da8
+from prego_tpu_torch.ops import decode_attention_wo as dwo
 from prego_tpu_torch.ops import fused_ffn as ffn
 from prego_tpu_torch.ops import gru_cuda, gru_cuda_vjp, quant
 
@@ -107,7 +108,8 @@ def _ffn_inputs(device, M, D, F, seed=0):
 
 
 @pytest.mark.parametrize("M,D,F", [(1, 64, 176), (3, 256, 512), (8, 512, 1000),
-                                   (1, 4096, 11008), (8, 4096, 11008)])
+                                   (1, 4096, 11008), (8, 4096, 11008),
+                                   (12, 512, 1000), (16, 2048, 5632)])  # in calls of 8 rows
 def test_fused_ffn_kernel_matches_plain(cuda_device, M, D, F):
     h, nw, w13, w2 = _ffn_inputs(cuda_device, M, D, F)
     out = ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
@@ -117,9 +119,10 @@ def test_fused_ffn_kernel_matches_plain(cuda_device, M, D, F):
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda_device):
-    h, nw, w13, w2 = _ffn_inputs(cuda_device, 9, 64, 176)
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 2, 60, 176)
     with pytest.raises(ValueError):
-        ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)  # M above the decode bound
+        ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)  # D not a multiple of 8
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 9, 64, 176)
     with pytest.raises(ValueError):
         ffn.fused_ffn_block(h.view(-1)[1:65].view(1, 64), nw, w13, w2, 1e-5)  # misaligned rows
     q, k, v = _attn_inputs(cuda_device, 1, 1, 1, 64, 64)
@@ -317,3 +320,135 @@ def test_int8_kernels_refuse_what_they_cannot_take(cuda_device):
         da8.decode_attention_q8(args[0], args[1].to(torch.bfloat16), *args[2:], 3)  # bf16 cache
     with pytest.raises(ValueError):
         da8.decode_attention_q8(args[0], args[1], args[2][..., :32], *args[3:], 3)  # scales cut
+
+
+# K8: o is K2's output, computed the same way by the kernel's merge and by
+# K2's combine, so o differs from the plain version's as K2's does
+# (ATTN_TOL); the f32 projection carries that over sum_k o_k wo_k with wo ~
+# N(0, 1 / (H hd)), i.e. about one such difference, and the residual
+# output rounds h + y to bf16 (|out| < 8: one ulp is 2^-5)
+WO_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -5)
+# K7: as K7a but f32 out: where an f32 sum of D products lands on a bf16
+# boundary of the activation a, a moves one bf16 ulp (2^-8 of |a| < 8),
+# and each such move enters y through one w2 element (~F^-0.5)
+FFN_ALONE_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -5)
+
+
+def _wo_inputs(device, B, KV, R, T, hd, D, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda s, *shape: torch.from_numpy((rng.normal(0, 1, shape) * s).astype(np.float32)).to(
+        device, torch.bfloat16)
+    return (mk(1.0, B, KV, R, hd), mk(1.0, B, KV, T, hd), mk(1.0, B, KV, T, hd),
+            mk((KV * R * hd) ** -0.5, KV * R * hd, D), mk(1.0, B, 1, D))
+
+
+@pytest.mark.parametrize("B,KV,R,T,hd,D", [(1, 16, 1, 512, 128, 2048), (3, 16, 1, 512, 128, 2048),
+                                           (8, 16, 1, 512, 128, 2048), (5, 4, 2, 512, 128, 256),
+                                           (4, 2, 4, 192, 64, 512), (12, 16, 1, 512, 128, 2048)])
+def test_decode_attention_wo_kernel_matches_plain(cuda_device, B, KV, R, T, hd, D):
+    q, k, v, wo, h = _wo_inputs(cuda_device, B, KV, R, T, hd, D)
+    valid = torch.tensor(([0, 63, 64, 65, T] * B)[:B], dtype=torch.int32, device=cuda_device)
+    before = dwo.KERNEL.launches
+    proj = dwo.decode_attention_wo(q, k, v, valid, wo)
+    res = dwo.decode_attention_wo(q, k, v, valid, wo, residual=h)
+    torch.cuda.synchronize()
+    assert dwo.KERNEL.launches == before + 2 * ((B + 7) // 8)
+    assert proj.dtype == torch.float32 and res.dtype == torch.bfloat16
+    assert proj.shape == res.shape == (B, 1, D)
+    torch.testing.assert_close(proj, dwo.decode_attention_wo_reference(q, k, v, valid, wo),
+                               **WO_TOL)
+    torch.testing.assert_close(res.float(), dwo.decode_attention_wo_reference(
+        q, k, v, valid, wo, residual=h).float(), **WO_TOL)
+    assert torch.all(proj[valid == 0] == 0) and torch.equal(res[valid == 0], h[valid == 0])
+    # the same bits on a second run, and a scalar bound reaches the same kernel
+    assert torch.equal(dwo.decode_attention_wo(q, k, v, valid, wo), proj)
+    torch.testing.assert_close(dwo.decode_attention_wo(q, k, v, T // 2 + 1, wo),
+                               dwo.decode_attention_wo_reference(q, k, v, T // 2 + 1, wo),
+                               **WO_TOL)
+
+
+def _qkv_views(device, B, KV, R, hd, seed=1):
+    """k_new / v_new as the model hands them over: (B, KV, 1, hd) views
+    into a (B, 1, (H + 2 KV) hd) activation, batch stride (H + 2 KV) hd."""
+    H = KV * R
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.normal(0, 1, (B, 1, (H + 2 * KV) * hd)).astype(np.float32)).to(
+        device, torch.bfloat16)
+    k_new = qkv[..., H * hd : (H + KV) * hd].reshape(B, 1, KV, hd).transpose(1, 2)
+    v_new = qkv[..., (H + KV) * hd :].reshape(B, 1, KV, hd).transpose(1, 2)
+    return k_new, v_new
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 511])
+@pytest.mark.parametrize("B,KV,R,D", [(1, 16, 1, 2048), (8, 16, 1, 2048), (3, 4, 2, 256),
+                                      (10, 16, 1, 2048)])
+def test_decode_attention_wo_res_upd_kernel_matches_plain(cuda_device, pos, B, KV, R, D):
+    T, hd = 512, 128
+    q, k, v, wo, h = _wo_inputs(cuda_device, B, KV, R, T, hd, D, seed=pos)
+    k_new, v_new = _qkv_views(cuda_device, B, KV, R, hd, seed=pos + 1)
+    ck, cv = k.clone(), v.clone()
+    before = dwo.KERNEL_UPD.launches
+    out, ok, ov = dwo.decode_attention_wo_res_upd(q, h, k_new, v_new, ck, cv, pos, wo)
+    torch.cuda.synchronize()
+    assert ok is ck and ov is cv and dwo.KERNEL_UPD.launches == before + (B + 7) // 8
+    want, rk, rv = dwo.decode_attention_wo_res_upd_reference(
+        q, h, k_new, v_new, k.clone(), v.clone(), pos, wo)
+    assert torch.equal(ck, rk) and torch.equal(cv, rv)  # write-then-attend, bit for bit
+    torch.testing.assert_close(out.float(), want.float(), **WO_TOL)
+    # the same as K8 with the residual over the written cache, and the same bits again
+    torch.testing.assert_close(out.float(), dwo.decode_attention_wo(
+        q, ck, cv, pos + 1, wo, residual=h).float(), **WO_TOL)
+    again, _, _ = dwo.decode_attention_wo_res_upd(q, h, k_new, v_new, ck, cv, pos, wo)
+    assert torch.equal(again, out)
+
+
+def test_decode_attention_wo_res_upd_per_row_positions(cuda_device):
+    B, KV, R, T, hd, D = 8, 16, 1, 512, 128, 2048
+    q, k, v, wo, h = _wo_inputs(cuda_device, B, KV, R, T, hd, D, seed=3)
+    k_new, v_new = _qkv_views(cuda_device, B, KV, R, hd, seed=4)
+    pos = torch.tensor([0, 62, 63, 64, 65, 127, 128, 511], dtype=torch.int32, device=cuda_device)
+    ck, cv = k.clone(), v.clone()
+    out, _, _ = dwo.decode_attention_wo_res_upd(q, h, k_new, v_new, ck, cv, pos, wo)
+    want, rk, rv = dwo.decode_attention_wo_res_upd_reference(
+        q, h, k_new, v_new, k.clone(), v.clone(), pos, wo)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, rk) and torch.equal(cv, rv)
+    torch.testing.assert_close(out.float(), want.float(), **WO_TOL)
+
+
+@pytest.mark.parametrize("M,D,F", [(1, 2048, 5632), (3, 2048, 5632), (8, 2048, 5632),
+                                   (1, 4096, 11008), (5, 4096, 11008), (8, 512, 1000),
+                                   (11, 2048, 5632)])
+def test_fused_ffn_alone_kernel_matches_plain(cuda_device, M, D, F):
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, M, D, F, seed=M)
+    x = ffn.rms_norm(h, nw, 1e-5)  # K7 takes the normed rows
+    before = ffn.KERNEL_FFN.launches
+    y = ffn.fused_ffn(x, w13, w2)
+    torch.cuda.synchronize()
+    assert ffn.KERNEL_FFN.launches == before + (M + 7) // 8
+    assert y.dtype == torch.float32 and y.shape == (M, D)
+    torch.testing.assert_close(y, ffn.fused_ffn_reference(x, w13, w2), **FFN_ALONE_TOL)
+    assert torch.equal(ffn.fused_ffn(x, w13, w2), y)  # the same bits again
+
+
+def test_fused_decode_kernels_refuse_what_they_cannot_take(cuda_device):
+    q, k, v, wo, h = _wo_inputs(cuda_device, 2, 2, 1, 64, 128, 256)
+    with pytest.raises(ValueError):
+        dwo.decode_attention_wo(q.float(), k, v, 3, wo)  # f32 query
+    with pytest.raises(ValueError):
+        dwo.decode_attention_wo(q, k, v, 3, wo[:128])  # wo rows are not H x hd
+    with pytest.raises(ValueError):
+        dwo.decode_attention_wo(q, k, v, 3, wo, residual=h.float())  # f32 residual
+    q24, k24, v24, wo24, _ = _wo_inputs(cuda_device, 2, 2, 1, 64, 24, 256)
+    with pytest.raises(ValueError):
+        dwo.decode_attention_wo(q24, k24, v24, 3, wo24)  # hd not a multiple of 16
+    k_new, v_new = _qkv_views(cuda_device, 2, 2, 1, 128)
+    apart = torch.zeros(2, 1, 2, 256, dtype=torch.bfloat16, device=cuda_device)[..., :128]
+    with pytest.raises(ValueError):  # a row's two kv heads 256 values apart, not dense
+        dwo.decode_attention_wo_res_upd(q, h, apart.transpose(1, 2), v_new, k, v, 3, wo)
+    with pytest.raises(ValueError):
+        dwo.decode_attention_wo_res_upd(q, h, k_new.float(), v_new, k, v, 3, wo)  # f32 rows
+    x = torch.zeros(2, 60, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        ffn.fused_ffn(x, torch.zeros(60, 352, dtype=torch.bfloat16, device=cuda_device),
+                      torch.zeros(176, 60, dtype=torch.bfloat16, device=cuda_device))  # D % 8

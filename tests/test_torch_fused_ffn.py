@@ -1,6 +1,7 @@
 """Fused-FFN parity: the port's plain version of K7a against prego_tpu's
 fused_ffn_block (interpret mode) and against the unfused JAX sequence
-rms_norm -> _feed_forward -> + h, on the same numpy inputs."""
+rms_norm -> _feed_forward -> + h, and of K7 against prego_tpu's fused_ffn
+(interpret mode) and fused_ffn_reference, on the same numpy inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,7 +9,9 @@ import pytest
 import torch
 
 from prego_tpu.models.llama.model import _feed_forward, rms_norm
+from prego_tpu.ops.fused_ffn import fused_ffn as jax_fused_ffn
 from prego_tpu.ops.fused_ffn import fused_ffn_block as jax_fused_ffn_block
+from prego_tpu.ops.fused_ffn import fused_ffn_reference as jax_fused_ffn_reference
 from prego_tpu_torch.ops import fused_ffn as port
 from tests.torch_parity import n, t
 
@@ -68,3 +71,33 @@ def test_wrapper_takes_plain_version_on_cpu():
     out = port.fused_ffn_block(t(h), t(nw), t(w13), t(w2), EPS)
     assert port.KERNEL.launches == before
     assert torch.equal(out, port.fused_ffn_block_reference(t(h), t(nw), t(w13), t(w2), EPS))
+
+
+@pytest.mark.parametrize("M,D,F", [(1, 128, 256), (8, 256, 512), (5, 128, 384), (16, 128, 250)])
+def test_ffn_alone_matches_pallas_interpret_and_reference(M, D, F):
+    """K7: x comes in normed; (M, D) f32 out, no residual."""
+    x, _, w13, w2 = _inputs(M + 2 * F, M, D, F)
+    jx, jw13, jw2 = jnp.asarray(x), jnp.asarray(w13), jnp.asarray(w2)
+    want = jax_fused_ffn(jx, jw13, jw2, f_block=128, interpret=True)
+    got = port.fused_ffn(t(x), t(w13), t(w2))
+    assert got.shape == (M, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(n(got), n(want), **TOL)
+    np.testing.assert_allclose(n(got), n(jax_fused_ffn_reference(jx, jw13, jw2)), **TOL)
+
+
+def test_ffn_alone_is_the_block_without_norm_and_residual():
+    """K7a = h + K7(rms_norm(h)) cast to h's dtype, in f32 and in bf16."""
+    h, nw, w13, w2 = _inputs(7, 3, 128, 256)
+    for dt in (torch.float32, torch.bfloat16):
+        args = [t(a, dt) for a in (h, nw, w13, w2)]
+        xn = port.rms_norm(args[0], args[1], EPS)
+        want = port.fused_ffn_block(*args, EPS)
+        assert torch.equal(args[0] + port.fused_ffn(xn, args[2], args[3]).to(dt), want)
+
+
+def test_ffn_alone_takes_plain_version_on_cpu():
+    x, _, w13, w2 = _inputs(1, 2, 64, 128)
+    before = port.KERNEL_FFN.launches
+    out = port.fused_ffn(t(x), t(w13), t(w2))
+    assert port.KERNEL_FFN.launches == before
+    assert torch.equal(out, port.fused_ffn_reference(t(x), t(w13), t(w2)))
