@@ -2,20 +2,24 @@
 
   python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the ten
+1. Prints the card (nvidia-smi name and power limit), builds the thirteen
    CUDA kernels of the paths from prego_tpu_torch/csrc with nvcc (one nvcc
    per library, all started together), and holds each against its plain
    PyTorch version at the shapes the main path gives it, in bf16 (int8
    for the quantized kernels), timing both with CUDA events, beside its
    roofline bound and, where one PyTorch call computes the same function,
    that call's time. The cuDNN GRU layer is timed beside the trainable GRU
-   layer as a yardstick, and the bf16 decode fusions (K8, K8u, K7) beside
-   the unfused sequence each replaces.
+   layer as a yardstick, the bf16 decode fusions (K8, K8u, K7) and the
+   int8 ones (K9 in both modes at the 7B wqkv, wo and lm-head shapes, K7q
+   at the 7B FFN) beside the unfused sequence each replaces, and K3m (K3's
+   int8_mxu mode, which no path runs) beside K3's default mode.
 2. Checks the port against its f32 CPU path: MiniROAD eval at full width
    on two video prefixes, one MiniROAD train step at full width (K1 + K6,
    bf16 stream, dropout 0) on 16 windows, a 2-layer LLaMA at 7B width
    in bf16, with int8 weights and an int8 KV cache, and with int8 x int8
-   projections, and a 2-layer LLaMA at 1B width in bf16 in the three
+   projections, the int8 + int8 KV model once more with the int8 fusion
+   gates on (PREGO_FUSED_DENSE_Q8=1 PREGO_FUSED_FFN_Q8=1: K9 and K7q, no K4
+   at decode), and a 2-layer LLaMA at 1B width in bf16 in the three
    fusion settings (default: K8 with its residual + K7a;
    PREGO_FUSED_LAYER=0: K8 + K7; PREGO_FUSED_CACHE_UPD=1: K8u + K7a).
 3. Drives the main path once, through the functions the CLIs call:
@@ -29,19 +33,24 @@
    byte tokenizer) -> one-class verdicts and metrics; then anticipation
    twice more over the same aggregated sequences, at 7B with
    --quantize int8 --kv_quant (K4, K3) and with --quantize int8x8 (K5,
-   K2), int8 weights drawn directly from a seed; then anticipation at the
+   K2), int8 weights drawn directly from a seed; a fourth time at 7B
+   with --quantize int8 --kv_quant and both int8 fusion gates on (K9, K3,
+   K7q), the int8 model's prefixes cleared and its sampler re-seeded, its
+   anticipated sets compared with the gates-off run's; then anticipation at the
    1B shape (--fabricated 1b: dim 2048, 16 layers, 16 heads, bf16) over
    the same sequences in the three fusion settings, the environment set
    around each run and restored after (K2 must not run in the default
    one). Every kernel's launch
-   count is reset just before this run and must be above 0 after it; the
+   count is reset just before this run and must be above 0 after it (K3m,
+   on no path, shows its phase-1 launches instead); the
    trained checkpoint's mAP must beat the untrained model's, and the
    training loss must fall.
 4. Times train steps (host clock, and the device busy share of a few under
    torch.profiler), 7B decode steps at batch 1 and 8 in the three modes,
-   and 1B decode steps at batch 1 and 8 in four fusion settings (the
-   three above and PREGO_FUSED_ATTN_WO=0, the unfused K2 sequence); at
-   batch 1 with the device busy share too.
+   the 7B int8 + int8 KV step with the int8 fusion gates off and on in
+   alternating rounds, and 1B decode steps at batch 1 and 8 in four fusion
+   settings (the three above and PREGO_FUSED_ATTN_WO=0, the unfused K2
+   sequence); at batch 1 with the device busy share too.
 
 TF32 is off for matmuls and cuDNN, so f32 products are full f32. Any
 failure raises (non-zero exit). The last line is the JSON device record;
@@ -80,7 +89,15 @@ KERNEL_INFO = {
     "decode_attention_wo_res_upd": ("prego_tpu_torch/csrc/decode_attention_wo.cu",
                                     "prego_tpu/ops/decode_attention.py:938"),
     "fused_ffn": ("prego_tpu_torch/csrc/fused_ffn.cu", "prego_tpu/ops/fused_ffn.py:85"),
+    "fused_dense_q8": ("prego_tpu_torch/csrc/fused_dense_q8.cu",
+                       "prego_tpu/ops/fused_dense.py:83"),
+    "fused_ffn_block_q8": ("prego_tpu_torch/csrc/fused_ffn.cu", "prego_tpu/ops/fused_ffn.py:224"),
+    "decode_attention_q8_mxu": ("prego_tpu_torch/csrc/decode_attention_q8.cu",
+                                "prego_tpu/ops/decode_attention.py:1372"),
 }
+# K3m (int8_mxu) is on no path of the port, as in the JAX package: it is
+# checked and timed in phase 1 and exempt from the main path's launch check
+OFF_PATH = ("decode_attention_q8_mxu",)
 # stated tolerances, kernel vs plain version, both bf16 on the card:
 TOL = {
     # one bf16 ulp of h (|h| < 1) where an f32 sum of 1024 products, taken
@@ -116,13 +133,29 @@ TOL = {
     # of the activation a, a moves one bf16 ulp (2^-8 of |a| < 8), and each
     # such move enters y through one w2 element (~F^-0.5)
     "fused_ffn": 2.0 ** -5,
+    # K9: the bf16 outputs (wqkv's y, wo's residual sum, |out| < 8) round
+    # one ulp (2^-5) apart where an f32 sum of K products taken in another
+    # order than cuBLAS's straddles a boundary, twice for the residual mode
+    # (y's rounding, then the sum's); the lm-head's f32 out differs by a
+    # few f32 ulps of its partial sums
+    "fused_dense_q8": 2.0 ** -4,
+    # K7q: as K7a (one bf16 ulp of h + y at |out| < 8), the int8 weights
+    # exact in both; a bf16 flip of a moves y by one w2 term
+    "fused_ffn_block_q8": 2.0 ** -4,
+    # K3m: q8 and the int32 dots are exact on both sides; where expf and
+    # torch.exp round p an ulp apart a pv code moves one step (2^-14 of the
+    # split's largest pv), plus the output's own bf16 rounding (2^-7 at
+    # |out| < 2)
+    "decode_attention_q8_mxu": 2.0 ** -6,
 }
 # the bf16 decode fusion gates (prego_tpu_torch/models/llama/model.py) and
 # the settings the 1B path runs in
 FUSION_GATES = ("PREGO_FUSED_FFN", "PREGO_FUSED_ATTN_WO", "PREGO_FUSED_LAYER",
-                "PREGO_FUSED_CACHE_UPD")
+                "PREGO_FUSED_CACHE_UPD", "PREGO_FUSED_DENSE_Q8", "PREGO_FUSED_FFN_Q8")
 FUSION_SETTINGS = {"default": {}, "layer_off": {"PREGO_FUSED_LAYER": "0"},
                    "cache_upd": {"PREGO_FUSED_CACHE_UPD": "1"}}
+# the int8 fusion stack (K9, K7q), opt-in as in the JAX package
+Q8_STACK = {"PREGO_FUSED_DENSE_Q8": "1", "PREGO_FUSED_FFN_Q8": "1"}
 # the card's published peaks (H100 SXM, dense): bf16 and int8 tensor
 # cores, HBM
 PEAK_BF16_FLOPS = 989e12
@@ -593,6 +626,160 @@ def check_fused_kernels(dev):
     return rows, cases
 
 
+def check_q8_fused_kernels(dev):
+    """K9 in both modes at the 7B call shapes (norm + wqkv with a bf16 out,
+    wo + residual, norm + lm-head with an f32 out) at M 1 and 8, and the
+    lm-head at M 64 (a prefill of up to 64 rows takes K9 there); K7q at the
+    7B FFN at M 1 and 8; K3m at K3's shapes; each against its plain
+    version, inputs cycling through copies that pass the L2 cache. Beside
+    K9 and K7q, the unfused sequence each replaces (rms_norm + K4 + cast,
+    K4 + cast + add; rms_norm + K4 + silu * up + K4 + add); beside K3m,
+    K3's default mode. Returns the kernels' rows and every case."""
+    from prego_tpu_torch.models.llama.model import _kv_dequant, _kv_quantize
+    from prego_tpu_torch.ops import decode_attention_q8 as da8
+    from prego_tpu_torch.ops import fused_dense as fd
+    from prego_tpu_torch.ops import fused_ffn as ffn
+    from prego_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    bf16 = torch.bfloat16
+    eps = 1e-5
+    cases = {"fused_dense_q8": [], "fused_ffn_block_q8": [], "decode_attention_q8_mxu": []}
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    # K9: (call site, mode, K, N, out dtype) at M 1 and 8, the lm-head at 64
+    sites = {"wqkv": ("norm", *PROJ_7B["wqkv"], bf16), "wo": ("residual", *PROJ_7B["wo"], bf16),
+             "lm_head": ("norm", *PROJ_7B["lm_head"], torch.float32)}
+    shapes = [(site, M) for M in (1, 8) for site in sites] + [("lm_head", 64)]
+    for site, M in shapes:
+        mode, K, N, out_dtype = sites[site]
+
+        def make():
+            q, s = quant.quantize_weight(rn(K, N, scale=K ** -0.5))
+            return (rn(M, K).to(bf16), q, s, (rn(K, scale=0.1) + 1).to(bf16), rn(M, N).to(bf16))
+        sets = copies_past_l2(make, K * N)
+        if mode == "norm":
+            def k9(x, q, s, nw, res):
+                return fd.fused_dense_q8(x, q, s, norm_weight=nw, eps=eps, out_dtype=out_dtype)
+
+            def plain(x, q, s, nw, res):
+                return fd.fused_dense_q8_reference(x, q, s, norm_weight=nw, eps=eps,
+                                                   out_dtype=out_dtype)
+
+            def unfused(x, q, s, nw, res):  # what the model runs with the gate off
+                return quant.int8_matmul(ffn.rms_norm(x, nw, eps), q, s).to(out_dtype)
+        else:
+            def k9(x, q, s, nw, res):
+                return fd.fused_dense_q8(x, q, s, residual=res)
+
+            def plain(x, q, s, nw, res):
+                return fd.fused_dense_q8_reference(x, q, s, residual=res)
+
+            def unfused(x, q, s, nw, res):
+                return res + quant.int8_matmul(x, q, s).to(bf16)
+        y = k9(*sets[0])
+        x, q, s, nw, res = sets[0]
+        moved = nbytes(x, q, s, y) + (nbytes(nw) if mode == "norm" else nbytes(res))
+        iters = 20 if M > 8 else 50
+        case = dict(
+            site=site, M=M, max_abs_err=max_err(y, plain(*sets[0])),
+            ms=time_ms_cycle(k9, sets, iters), plain_ms=time_ms_cycle(plain, sets, iters),
+            **bound(2 * M * K * N, moved),
+            library_ms=None,  # no one PyTorch call: see unfused_ms
+            unfused_ms=time_ms_cycle(unfused, sets, iters),
+        )
+        cases["fused_dense_q8"].append(case)
+        log_case("fused_dense_q8", f"{site} ({mode}) M={M} K={K} N={N}", case)
+        log(f"  the unfused sequence ({'rms_norm, K4, cast' if mode == 'norm' else 'K4, cast, add'})"
+            f" {case['unfused_ms']:.4f} ms")
+
+    # K7q at the 7B FFN: M 1 and 8, D 4096, F 11008
+    D, F = 4096, 11008
+    for M in (1, 8):
+        def make():
+            w13q, w13s = quant.quantize_weight(rn(D, 2 * F, scale=D ** -0.5))
+            w2q, w2s = quant.quantize_weight(rn(F, D, scale=F ** -0.5))
+            return rn(M, D).to(bf16), (rn(D, scale=0.1) + 1).to(bf16), w13q, w13s, w2q, w2s
+        sets = copies_past_l2(make, 3 * D * F)
+
+        def k7q(*a):
+            return ffn.fused_ffn_block_q8(*a, eps)
+
+        def plain(*a):
+            return ffn.fused_ffn_block_q8_reference(*a, eps)
+
+        def unfused(h, nw, w13q, w13s, w2q, w2s):  # the model's sequence with the gate off
+            g13 = quant.int8_matmul(ffn.rms_norm(h, nw, eps), w13q, w13s)
+            act = (torch.nn.functional.silu(g13[:, :F]) * g13[:, F:]).to(bf16)
+            return h + quant.int8_matmul(act, w2q, w2s).to(bf16)
+        out = k7q(*sets[0])
+        case = dict(
+            M=M, max_abs_err=max_err(out, plain(*sets[0])),
+            ms=time_ms_cycle(k7q, sets, 50), plain_ms=time_ms_cycle(plain, sets, 50),
+            **bound(2 * M * D * 3 * F, nbytes(*sets[0], out)),
+            library_ms=None,  # PyTorch has no fused norm + SwiGLU FFN call
+            unfused_ms=time_ms_cycle(unfused, sets, 50),
+        )
+        cases["fused_ffn_block_q8"].append(case)
+        log_case("fused_ffn_block_q8", f"M={M} D={D} F={F}", case)
+        log(f"  the unfused int8 sequence (rms_norm, K4, silu * up, K4, add) "
+            f"{case['unfused_ms']:.4f} ms")
+
+    # K3m: K3's cases (B 8, hd 128, T 512, the same ragged bounds); the
+    # library call runs on the dequantized bf16 cache, K3 on the int8 one
+    valid = torch.tensor([0, 512, 1, 77, 255, 256, 300, 511], dtype=torch.int32, device=dev)
+    used = int(valid.sum())
+    mask = (torch.arange(512, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for KV, R in ((32, 1), (8, 4)):
+        def make():
+            kq, ks = _kv_quantize(rn(8, KV, 512, 128))
+            vq, vs = _kv_quantize(rn(8, KV, 512, 128))
+            return rn(8, KV, R, 128).to(bf16), kq, ks, vq, vs
+        sets = copies_past_l2(make, 2 * 8 * KV * 512 * 132)
+        deq = [(a[0], _kv_dequant({"q": a[1], "s": a[2]}, bf16),
+                _kv_dequant({"q": a[3], "s": a[4]}, bf16)) for a in sets]
+        out = da8.decode_attention_q8(*sets[0], valid, int8_mxu=True)
+        if not torch.all(out[0] == 0):
+            raise AssertionError("decode_attention_q8_mxu: valid_len 0 must give zeros")
+        case = dict(
+            R=R, KV=KV,
+            max_abs_err=max_err(out, da8.decode_attention_q8_mxu_reference(*sets[0], valid)),
+            ms=time_ms_cycle(lambda *a: da8.decode_attention_q8(*a, valid, int8_mxu=True),
+                             sets, 50),
+            plain_ms=time_ms_cycle(lambda *a: da8.decode_attention_q8_mxu_reference(*a, valid),
+                                   sets, 10),
+            # K3's bytes; the score dot and the two PV dots in int8
+            **bound(3 * 2 * used * KV * R * 128,
+                    2 * used * KV * (128 + 4) + nbytes(sets[0][0], valid, out), PEAK_INT8_OPS),
+            library_ms=time_ms_cycle(lambda q, k, v: sdpa(q, k, v, attn_mask=mask), deq, 50),
+            k3_default_ms=time_ms_cycle(lambda *a: da8.decode_attention_q8(*a, valid), sets, 50),
+        )
+        cases["decode_attention_q8_mxu"].append(case)
+        log_case("decode_attention_q8_mxu", f"B=8 KV={KV} R={R} T=512", case)
+        log(f"  K3's default mode on the same int8 cache: {case['k3_default_ms']:.4f} ms")
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K9's row: a 7B decode step's three call shapes at M 1, summed (32
+    # layers run the first two, the head the third)
+    step = [c for c in cases["fused_dense_q8"] if c["M"] == 1]
+    rows = {"fused_dense_q8": dict(
+        ms=sum(c["ms"] for c in step), plain_ms=sum(c["plain_ms"] for c in step),
+        bound_ms=sum(c["bound_ms"] for c in step),
+        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step) else "operations",
+        library_ms=None)}
+    for name in ("fused_ffn_block_q8", "decode_attention_q8_mxu"):
+        rows[name] = {k: cases[name][0][k] for k in keys}
+    for name, cs in cases.items():
+        rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cs)
+        if not rows[name]["max_abs_err"] <= TOL[name]:
+            raise AssertionError(f"{name}: max_abs_err {rows[name]['max_abs_err']} > {TOL[name]}")
+    return rows, cases
+
+
 def gru_layer_yardstick(dev):
     """The trainable GRU layer (K1 forward, K6 backward) beside cuDNN's GRU
     layer, both at the training shape and both including the input
@@ -820,13 +1007,15 @@ def check_llama_1b(dev, toks):
 
 def check_llama_quantized(cfg, dev, toks):
     """The 2-layer LLaMA at 7B width with int8 weights drawn on the card:
-    int8 weights and an int8 KV cache (K4, K3), and int8 x int8
+    int8 weights and an int8 KV cache (K4, K3), the same with the int8
+    fusion gates on (K9, K3, K7q; no K4 at decode), and int8 x int8
     projections over a bf16 cache (K5, K2), on the card in bf16 against
     the port's CPU path with the same int8 parameters (the kernels' plain
     versions): in the same bf16 walk, and in f32."""
     from prego_tpu_torch.models.llama.model import (
         forward, init_cache, init_params_quantized, mark_activations,
     )
+    from prego_tpu_torch.ops import kernels
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
@@ -850,18 +1039,27 @@ def check_llama_quantized(cfg, dev, toks):
     # must agree wherever the f32 top-2 margin passes a quarter of the
     # logits' spread, as tests/test_llama.py asks. (The CPU alone, its bf16
     # walk against its f32 walk on these int8 weights at 2 layers, differs
-    # by 3.7e-2, 4.2e-2 and 4.4e-2 at widths 256, 1024 and 2048.)
-    for mode, act, kv_quant, tol in (("int8_kv8", False, True, 3e-2),
-                                     ("int8x8", True, False, 1e-1)):
+    # by 3.7e-2, 4.2e-2 and 4.4e-2 at widths 256, 1024 and 2048.) With the
+    # int8 fusion gates the plain versions on the CPU compute the unfused
+    # sequence's values, and K9 and K7q sum in another order than K4 on the
+    # card: the int8_kv8 bar holds.
+    for mode, act, kv_quant, tol, env in (("int8_kv8", False, True, 3e-2, {}),
+                                          ("int8_kv8_q8", False, True, 3e-2, Q8_STACK),
+                                          ("int8x8", True, False, 1e-1, {})):
         logits = {}
+        decode_ran = set()  # the kernels the card's decode steps launched
         for walk, (params, device, dtype) in walks.items():
             params = mark_activations(params, act)
             cache = init_cache(cfg, 2, dtype, device, quantized=kv_quant)
             steps = []
             for pos, chunk in ((0, toks[:, :16]), (16, toks[:, 16:17]), (17, toks[:, 17:18]),
                                (18, toks[:, 18:19])):
-                lg, cache = forward(params, chunk.to(device), pos, cache, cfg)
+                before = {n: k.launches for n, k in kernels().items()}
+                with gate_env(env):
+                    lg, cache = forward(params, chunk.to(device), pos, cache, cfg)
                 steps.append(lg.float().cpu())
+                if walk == "card" and pos > 0:
+                    decode_ran |= {n for n, k in kernels().items() if k.launches > before[n]}
             logits[walk] = torch.cat(steps, dim=1)
         ref = logits["cpu_f32"]
         same = max_err(logits["card"], logits["cpu_bf16"]) / float(logits["cpu_bf16"].abs().max())
@@ -872,12 +1070,18 @@ def check_llama_quantized(cfg, dev, toks):
         log(f"LLaMA 7B width x 2 layers, {mode}, card vs CPU on the same int8 weights, prefill "
             f"16 + 3 decode steps: max |d logit| / max |logit| {same:.3e} against the same bf16 "
             f"walk, {f32:.3e} against f32 (tol {tol} each); greedy agreement where the margin "
-            f"is clear {int(agree.sum())} of {int(clear.sum())} (all)")
+            f"is clear {int(agree.sum())} of {int(clear.sum())} (all); kernels at decode "
+            f"{sorted(decode_ran)}")
         if not (same <= tol and f32 <= tol and bool(agree.all())):
             raise AssertionError(f"LLaMA {mode} on the card disagrees with the CPU path")
+        if env and not ({"fused_dense_q8", "fused_ffn_block_q8"} <= decode_ran
+                        and "int8_matmul" not in decode_ran):
+            raise AssertionError(f"LLaMA {mode} decoded with {sorted(decode_ran)}: K9 and K7q "
+                                 f"must run and K4 must not")
         out[f"llama_{mode}"] = {"rel_logit_err_same_walk": same, "rel_logit_err_f32": f32,
                                 "greedy_clear": int(clear.sum()),
-                                "greedy_clear_agree": int(agree.sum())}
+                                "greedy_clear_agree": int(agree.sum()),
+                                "decode_kernels": sorted(decode_ran)}
     return out
 
 
@@ -1022,6 +1226,18 @@ def run_main_path(dev):
         res = anticipate.run(args, llm=qllm)
         torch.cuda.synchronize()
         modes[mode] = (res, time.perf_counter() - t_m, qllm.llama.decode_steps)
+    # the int8 fusion stack over the same sequences, on the int8 + int8 KV
+    # model as a fresh one would start (no prefixes, the sampler's seed), so
+    # that its answers can be compared with the gates-off run's
+    kv8 = qllms["int8_kv8"].llama
+    kv8._prefix_caches.clear()
+    kv8.generator = make_generator(1, dev)
+    steps0 = kv8.decode_steps
+    t_m = time.perf_counter()
+    with gate_env(Q8_STACK):
+        res = anticipate.run(mode_args["int8_kv8"], llm=qllms["int8_kv8"])
+        torch.cuda.synchronize()
+    q8_stack = (res, time.perf_counter() - t_m, kv8.decode_steps - steps0)
     fused = {}
     k2 = kernels()["decode_attention"]
     for setting, env in FUSION_SETTINGS.items():
@@ -1044,6 +1260,7 @@ def run_main_path(dev):
         raise AssertionError("aggregated sequences malformed")
     n_steps = sum(len(a["pred"]) for a in agg.values())
     for mode, res in (("bf16", result), *((k, v[0]) for k, v in modes.items()),
+                      ("int8_kv8_q8", q8_stack[0]),
                       *((f"1b_{k}", v[0]) for k, v in fused.items())):
         m = res.metrics
         if m is None or m["samples"] != n_steps or not 0.0 <= m["accuracy"] <= 1.0:
@@ -1060,7 +1277,7 @@ def run_main_path(dev):
     if not trained.epoch_losses[-1] < trained.epoch_losses[0]:
         raise AssertionError(f"the training loss did not fall: {trained.epoch_losses}")
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name not in OFF_PATH:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     if fused["default"][3] != 0:
         raise AssertionError(f"the 1B default setting launched K2 {fused['default'][3]} times")
@@ -1070,6 +1287,9 @@ def run_main_path(dev):
     same_as_default = {
         setting: sum(a == b for v in agg for a, b in zip(res.preds[v], fused["default"][0].preds[v]))
         for setting, (res, *_) in fused.items()}
+    # K9 and K7q sum in another order than K4, so a sampled token may differ
+    q8_same = sum(a == b for v in agg
+                  for a, b in zip(q8_stack[0].preds[v], modes["int8_kv8"][0].preds[v]))
     st = trained.stats
     report = {
         "test_videos": len(raw), "test_frames": sum(lengths.values()),
@@ -1089,6 +1309,11 @@ def run_main_path(dev):
                    "decode_steps": steps,
                    "verdict_metrics": {k: res.metrics[k] for k in ("samples", "accuracy", "f1")}}
             for mode, (res, wall, steps) in modes.items()},
+        "int8_kv8_q8_stack": {
+            "anticipation_s": q8_stack[1], "llm_calls": len(q8_stack[0].llm_latencies),
+            "s_per_llm_call": q8_stack[1] / max(len(q8_stack[0].llm_latencies), 1),
+            "decode_steps": q8_stack[2], "sets_equal_to_gates_off": q8_same,
+            "verdict_metrics": {k: q8_stack[0].metrics[k] for k in ("samples", "accuracy", "f1")}},
         "fused_1b_settings": {
             setting: {"anticipation_s": wall, "llm_calls": len(res.llm_latencies),
                       "s_per_llm_call": wall / max(len(res.llm_latencies), 1),
@@ -1217,27 +1442,36 @@ def _decode_steps(lm, label, dev, out, profile=True):
                 f"{json.dumps({k[:60]: round(v, 4) for k, v in top.items()})}")
 
 
-def decode_step_ms(llms, llm_1b, dev, rounds=6):
-    """Decode steps of the 7B modes, and of the 1B model in four fusion
-    settings (the three of the main path and PREGO_FUSED_ATTN_WO=0, the
-    unfused K2 sequence) in ``rounds`` rounds, the order reversed every
-    other round (the host clock moves with the host's load), the first
-    round with the profiler; the median and range of each."""
-    out = {}
-    for mode, llm in llms.items():
-        _decode_steps(llm.llama, f"7B {mode}", dev, out)
-    settings = [*FUSION_SETTINGS.items(), ("attn_wo_off", {"PREGO_FUSED_ATTN_WO": "0"})]
+def _alternating(lm, prefix, settings, dev, out, rounds):
+    """``_decode_steps`` of ``lm`` in each (setting, gates) of ``settings``
+    over ``rounds`` rounds, the order reversed every other round (the host
+    clock moves with the host's load), the first round with the profiler;
+    then the median and range of each."""
     for rnd in range(rounds):
         for setting, env in (settings if rnd % 2 == 0 else settings[::-1]):
             with gate_env(env):
-                _decode_steps(llm_1b.llama, f"1B {setting}", dev, out, profile=rnd == 0)
+                _decode_steps(lm, f"{prefix} {setting}", dev, out, profile=rnd == 0)
     for setting, _ in settings:
         for B in (1, 8):
-            xs = sorted(out[f"1B {setting}_b{B}"])
+            xs = sorted(out[f"{prefix} {setting}_b{B}"])
             med = (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
-            out[f"1B {setting}_b{B}_median"] = med
-            log(f"1B {setting} decode step, B={B}: median {med:.3f} ms over {len(xs)} rounds "
-                f"(min {xs[0]:.3f}, max {xs[-1]:.3f})")
+            out[f"{prefix} {setting}_b{B}_median"] = med
+            log(f"{prefix} {setting} decode step, B={B}: median {med:.3f} ms over {len(xs)} "
+                f"rounds (min {xs[0]:.3f}, max {xs[-1]:.3f})")
+
+
+def decode_step_ms(llms, llm_1b, dev, rounds=6, rounds_q8=4):
+    """Decode steps of the 7B modes; of the 7B int8 + int8 KV model with
+    the int8 fusion stack off and on, in ``rounds_q8`` alternating rounds;
+    and of the 1B model in four fusion settings (the three of the main path
+    and PREGO_FUSED_ATTN_WO=0, the unfused K2 sequence) in ``rounds``."""
+    out = {}
+    for mode, llm in llms.items():
+        _decode_steps(llm.llama, f"7B {mode}", dev, out)
+    _alternating(llms["int8_kv8"].llama, "7B int8_kv8", [("q8_off", {}), ("q8_on", Q8_STACK)],
+                 dev, out, rounds_q8)
+    settings = [*FUSION_SETTINGS.items(), ("attn_wo_off", {"PREGO_FUSED_ATTN_WO": "0"})]
+    _alternating(llm_1b.llama, "1B", settings, dev, out, rounds)
     return out
 
 
@@ -1258,6 +1492,13 @@ def main():
     rows.update(q_rows)
     f_rows, f_cases = check_fused_kernels(dev)
     rows.update(f_rows)
+    q8_rows, q8_cases = check_q8_fused_kernels(dev)
+    rows.update(q8_rows)
+    from prego_tpu_torch.ops import kernels
+    phase1 = {name: kernels()[name].launches for name in OFF_PATH}  # off the path: phase 1 only
+    log(f"launches in phase 1 of the kernels on no path: {phase1}")
+    if not all(n > 0 for n in phase1.values()):
+        raise AssertionError(f"a kernel on no path was not launched in phase 1: {phase1}")
     layer = gru_layer_yardstick(dev)
     cpu = check_against_cpu(dev)
     llms, llm_1b, cfg, launches, report = run_main_path(dev)
@@ -1271,12 +1512,15 @@ def main():
 
     log(json.dumps({"summary": {**report, "cpu_checks": cpu, "gru_layer": layer, **train,
                                 "quant_kernel_cases": q_cases, "fused_kernel_cases": f_cases,
+                                "q8_fused_kernel_cases": q8_cases,
+                                "off_path_phase1_launches": phase1,
                                 "decode_ms_per_step": decode,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
                                 "total_s": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-         "replaces": KERNEL_INFO[name][1], "launches": launches[name], **rows[name]}
+         "replaces": KERNEL_INFO[name][1], "launches": launches[name], **rows[name],
+         **({"phase1_launches": phase1[name]} if name in phase1 else {})}
         for name in KERNEL_INFO
     ]}))
     print(smi)

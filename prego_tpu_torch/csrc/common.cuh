@@ -39,6 +39,18 @@ __device__ __forceinline__ void int8x4_to_float(unsigned int raw, float* out) {
         out[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.f;
 }
 
+// Rows r0..r3 of 4 int8 columns -> w[j] = the 4 rows of column j, low
+// byte first: 4 consecutive k of a column in one word, as __dp4a takes them.
+__device__ __forceinline__ void transpose4x4(unsigned int r0, unsigned int r1, unsigned int r2,
+                                             unsigned int r3, unsigned int* w) {
+    const unsigned int a_lo = __byte_perm(r0, r1, 0x5140), a_hi = __byte_perm(r0, r1, 0x7362);
+    const unsigned int b_lo = __byte_perm(r2, r3, 0x5140), b_hi = __byte_perm(r2, r3, 0x7362);
+    w[0] = __byte_perm(a_lo, b_lo, 0x5410);
+    w[1] = __byte_perm(a_lo, b_lo, 0x7632);
+    w[2] = __byte_perm(a_hi, b_hi, 0x5410);
+    w[3] = __byte_perm(a_hi, b_hi, 0x7632);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

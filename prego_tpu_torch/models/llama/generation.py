@@ -23,6 +23,7 @@ the int8 cache of ``init_cache(quantized=True)``.
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -55,19 +56,31 @@ class Llama:
 
     PREFIX_CHUNK = 64  # granularity of the shared prefix that is cached
     PREFIX_BUILD_CHUNK = 256  # prefill chunk when building a prefix cache
-    PREFIX_CACHE_SLOTS = 4  # LRU entries; each holds a B=1 cache of every layer
-    PAD_TO_MULTIPLE = 64  # token buffers are rounded up to this length
     EOS_CHECK_EVERY = 8  # decode steps between host checks for all-done
 
-    def __init__(self, params: Params, tokenizer, config: LlamaConfig, kv_quant: bool = False):
+    def __init__(
+        self,
+        params: Params,
+        tokenizer,
+        config: LlamaConfig,
+        pad_to_multiple: int = 64,
+        kv_quant: bool = False,
+        prefix_cache_slots: int = 4,
+    ):
         self.params = params
         self.tokenizer = tokenizer
         self.config = config
         self.device = params["norm"].device
         self.dtype = params["norm"].dtype
+        self.pad_to_multiple = pad_to_multiple  # token buffers are rounded up to this length
         self.kv_quant = kv_quant  # int8 KV cache (model.init_cache(quantized=True))
         self.rope = precompute_rope(config, device=self.device)
-        self.generator = make_generator(1, self.device)  # generation.py:95 seeds 1
+        # generation.py:95 seeds 1; PREGO_SAMPLE_SEED varies the sampling
+        # stream, as in the JAX package (its noise-floor controls)
+        self.generator = make_generator(int(os.environ.get("PREGO_SAMPLE_SEED", "1")),
+                                        self.device)
+        # LRU entries; each holds a B=1 cache of every layer
+        self.prefix_cache_slots = max(1, int(prefix_cache_slots))
         self._prefix_caches: "OrderedDict[Tuple[int, ...], Cache]" = OrderedDict()
         self.prefix_rebuilds = 0  # observability: from-scratch prefill count
         self.prefix_extends = 0  # observability: delta-prefill count
@@ -161,7 +174,7 @@ class Llama:
             raise ValueError(f"prompt of {max_prompt_len} tokens exceeds max_seq_len")
         total_len = min(config.max_seq_len, max_gen_len + max_prompt_len)
         pad_id = self.tokenizer.pad_id
-        buf_len = min(_round_up(total_len, self.PAD_TO_MULTIPLE), config.max_seq_len)
+        buf_len = min(_round_up(total_len, self.pad_to_multiple), config.max_seq_len)
         tokens = np.full((bsz, buf_len), pad_id, np.int64)
         for i, t in enumerate(prompt_tokens):
             tokens[i, : len(t)] = np.asarray(t, np.int64)
@@ -236,7 +249,7 @@ class Llama:
                 cache, self.config, self.rope,
             )
         self._prefix_caches[prefix] = cache
-        while len(self._prefix_caches) > self.PREFIX_CACHE_SLOTS:
+        while len(self._prefix_caches) > self.prefix_cache_slots:
             self._prefix_caches.popitem(last=False)  # evict least-recent
         return cache
 
@@ -280,7 +293,7 @@ class Llama:
         max_s = max(len(s) for s in suffixes)
         total_s = min(config.max_seq_len - eff, max_gen_len + max_s)
         pad_id = self.tokenizer.pad_id
-        buf_len = min(_round_up(total_s, self.PAD_TO_MULTIPLE), config.max_seq_len - eff)
+        buf_len = min(_round_up(total_s, self.pad_to_multiple), config.max_seq_len - eff)
         tokens = np.full((bsz, buf_len), pad_id, np.int64)
         for i, s in enumerate(suffixes):
             tokens[i, : len(s)] = np.asarray(s, np.int64)

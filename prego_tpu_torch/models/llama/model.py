@@ -19,10 +19,10 @@ tensors), which keeps one copy of the cache in device memory. Callers
 that must keep a cache unchanged (the prefix LRU) pass a clone.
 
 Decode (one token per row) runs the ported kernels, chosen in the JAX
-package's order (prego_tpu/models/llama/model.py:487-518, 566-602,
-678-699, 777-791) by its four bf16 fusion gates, read from the
-environment once per ``forward`` call with the JAX package's defaults
-(``fusion_gates``):
+package's order (prego_tpu/models/llama/model.py:435-455, 487-518,
+566-602, 637-656, 678-699, 777-812, 933-953) by its four bf16 fusion gates
+and two int8 fusion gates, read from the environment once per ``forward``
+call with the JAX package's defaults (``fusion_gates``):
 
   PREGO_FUSED_ATTN_WO (on)     K8: attention and the wo projection in one
                                call, for a bf16 wo of at most 4.5M elements
@@ -34,13 +34,26 @@ environment once per ``forward`` call with the JAX package's defaults
                                FFN alone, after a separate rms_norm
   PREGO_FUSED_CACHE_UPD (off)  K8u: this token's cache write inside K8 with
                                the residual (with the two gates above on)
+  PREGO_FUSED_DENSE_Q8 (off)   K9 on weight-only int8 leaves: the attention
+                               norm inside the wqkv projection and the
+                               residual add inside wo's (decode rows), and
+                               the final norm inside the lm-head (B * S <=
+                               64 rows, prefill included)
+  PREGO_FUSED_FFN_Q8 (off)     K7q, the FFN sub-layer over a weight-only
+                               int8 w13 / w2, with its norm and residual
+                               (decode rows; needs PREGO_FUSED_LAYER too)
 
 So a 1B-class bf16 decode layer runs K8-res and K7a by default, K8 (f32
 out, then the cast and the add) and rms_norm + K7 under
 PREGO_FUSED_LAYER=0, K8u and K7a under PREGO_FUSED_CACHE_UPD=1, and K2,
 the wo product and the add under PREGO_FUSED_ATTN_WO=0. An int8 KV cache
 is tested first, so K3 runs over it whatever the gates say; an int8 wo
-never takes K8 or K8u. The JAX package also requires its
+never takes K8 or K8u. With both int8 gates on, a weight-only int8 decode
+layer runs K9 (norm + wqkv), K3 or K2, K9 (wo + residual) and K7q, and the
+step ends in K9 (norm + lm-head); int8 x int8 leaves (``"act"``) and
+bf16 leaves never take K9 or K7q, and the unfused layout (wq / wk / wv,
+w1 / w3) has no norm + qkv site and no K7q (its int8 wo and lm-head take
+K9, as in the JAX package). The JAX package also requires its
 ``_flash_decode_supported`` (a TPU backend, hd % 128 == 0, max_seq_len %
 256 == 0) before any decode kernel; the port's decode branch has no such
 condition (K2 runs at every decode step), and K8 takes the same: the
@@ -57,12 +70,12 @@ every such leaf through K4 (weight-only) or ``quantize_activations`` and
 K5, at prefill as at decode. The JAX package sends projections with a
 dimension of 4096 or more to an XLA dot on the TPU (``_q8_dense_backend``,
 ``PREGO_Q8_DENSE``); that is a TPU choice and is not ported: on the card
-every int8 projection runs K4 or K5. int8 FFN weights take the unfused
-sequence (K7a is bf16 only), as the JAX package does with
-``PREGO_FUSED_FFN_Q8`` off. ``init_cache(quantized=True)`` stores K and V
-as ``{"q": int8 (B, KV, T, hd), "s": f32 (B, KV, T)}``, one symmetric
-scale per position and head; decode reads it with K3 and prefill
-dequantizes it for the masked einsum.
+every int8 projection runs K4 or K5, or inside K9 or K7q. int8 FFN
+weights take the unfused sequence (K7a is bf16 only) unless
+``PREGO_FUSED_FFN_Q8`` sends them to K7q. ``init_cache(quantized=True)``
+stores K and V as ``{"q": int8 (B, KV, T, hd), "s": f32 (B, KV, T)}``,
+one symmetric scale per position and head; decode reads it with K3 and
+prefill dequantizes it for the masked einsum.
 """
 
 from __future__ import annotations
@@ -79,7 +92,10 @@ from prego_tpu_torch.ops.decode_attention_wo import (
     decode_attention_wo, decode_attention_wo_res_upd,
 )
 from prego_tpu_torch.ops.dense import bmm_f32, mm_f32
-from prego_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_block, rms_norm
+from prego_tpu_torch.ops.fused_dense import fused_dense_q8
+from prego_tpu_torch.ops.fused_ffn import (
+    fused_ffn, fused_ffn_block, fused_ffn_block_q8, rms_norm,
+)
 from prego_tpu_torch.ops.quant import (
     int8_matmul, int8xint8_matmul, quantize_activations, quantize_weight,
 )
@@ -101,12 +117,14 @@ WO_FUSE_MAX = 4_500_000
 
 
 class FusionGates(NamedTuple):
-    """The bf16 decode fusion gates, as the JAX package reads them."""
+    """The decode fusion gates, as the JAX package reads them."""
 
     ffn: bool  # PREGO_FUSED_FFN: K7a (and K7 under layer=False)
     attn_wo: bool  # PREGO_FUSED_ATTN_WO: K8
-    layer: bool  # PREGO_FUSED_LAYER: residual epilogues (K8-res, K7a)
+    layer: bool  # PREGO_FUSED_LAYER: residual epilogues (K8-res, K7a, K7q)
     cache_upd: bool  # PREGO_FUSED_CACHE_UPD: K8u
+    dense_q8: bool  # PREGO_FUSED_DENSE_Q8: K9 (norm + wqkv, wo + residual, norm + lm-head)
+    ffn_q8: bool  # PREGO_FUSED_FFN_Q8: K7q
 
 
 def _fused_ffn_supported() -> bool:
@@ -125,14 +143,28 @@ def _fused_cache_upd_supported() -> bool:
     return os.environ.get("PREGO_FUSED_CACHE_UPD", "0") == "1"  # opt-in
 
 
+def _fused_dense_q8_supported() -> bool:
+    return os.environ.get("PREGO_FUSED_DENSE_Q8", "0") == "1"  # opt-in
+
+
+def _fused_ffn_q8_supported() -> bool:
+    return os.environ.get("PREGO_FUSED_FFN_Q8", "0") == "1"  # opt-in
+
+
 def fusion_gates() -> FusionGates:
     return FusionGates(_fused_ffn_supported(), _fused_attn_wo_supported(),
-                       _fused_layer_supported(), _fused_cache_upd_supported())
+                       _fused_layer_supported(), _fused_cache_upd_supported(),
+                       _fused_dense_q8_supported(), _fused_ffn_q8_supported())
 
 
 def is_quantized(leaf) -> bool:
     """An int8 projection leaf {"q", "s"[, "act"]}."""
     return isinstance(leaf, dict) and "q" in leaf
+
+
+def _weight_only_q8(leaf) -> bool:
+    """An int8 leaf without the int8 x int8 marker: the leaves K9 and K7q take."""
+    return is_quantized(leaf) and "act" not in leaf
 
 
 # ---- initialization ----
@@ -388,11 +420,20 @@ def _attention(
     the cache at [start_pos, start_pos + S)."""
     B, S, D = h.shape
     H, KV, hd = config.n_heads, config.kv_heads, config.head_dim
-    x = rms_norm(h, norm_weight, config.norm_eps)
-    if "wqkv" in p:
-        xqkv = _dense(x, p["wqkv"]).to(x.dtype)
+    dense_q8 = S == 1 and gates.dense_q8  # K9's decode sites
+    if dense_q8 and _weight_only_q8(p.get("wqkv")):
+        # the norm inside the int8 qkv projection
+        dt = h.dtype
+        xqkv = fused_dense_q8(h.reshape(B, D), p["wqkv"]["q"], p["wqkv"]["s"],
+                              norm_weight=norm_weight, eps=config.norm_eps,
+                              out_dtype=dt).reshape(B, 1, -1)
     else:
-        xqkv = torch.cat([_dense(x, p[w]).to(x.dtype) for w in ("wq", "wk", "wv")], dim=-1)
+        x = rms_norm(h, norm_weight, config.norm_eps)
+        dt = x.dtype
+        if "wqkv" in p:
+            xqkv = _dense(x, p["wqkv"]).to(dt)
+        else:
+            xqkv = torch.cat([_dense(x, p[w]).to(dt) for w in ("wq", "wk", "wv")], dim=-1)
     # q and k heads rotate together: one rope pass over H + KV heads
     qk = apply_rope(xqkv[..., : (H + KV) * hd].reshape(B, S, H + KV, hd), cos, sin)
     xq, xk = qk[:, :, :H], qk[:, :, H:]
@@ -428,25 +469,29 @@ def _attention(
         elif fuse_wo:
             if gates.layer:  # the residual add in the kernel's epilogue
                 return decode_attention_wo(q1, cache_k, cache_v, valid, wo, residual=h)
-            return h + decode_attention_wo(q1, cache_k, cache_v, valid, wo).to(x.dtype)
+            return h + decode_attention_wo(q1, cache_k, cache_v, valid, wo).to(dt)
         else:
             out = decode_attention(q1, cache_k, cache_v, valid)
-        out = out.reshape(B, 1, H * hd).to(x.dtype)
+        out = out.reshape(B, 1, H * hd).to(dt)
+        if dense_q8 and _weight_only_q8(wo):
+            # the int8 wo projection and the residual add in one call
+            return fused_dense_q8(out.reshape(B, H * hd), wo["q"], wo["s"],
+                                  residual=h.reshape(B, D)).reshape(B, 1, D)
     else:
         # GQA against the full cache with a causal mask (model.py:612-636);
         # an int8 cache is dequantized for it
-        k_full = _kv_dequant(cache_k, x.dtype) if kv_quant else cache_k
-        v_full = _kv_dequant(cache_v, x.dtype) if kv_quant else cache_v
+        k_full = _kv_dequant(cache_k, dt) if kv_quant else cache_k
+        v_full = _kv_dequant(cache_v, dt) if kv_quant else cache_v
         T = k_full.shape[2]
         qh = q.permute(0, 2, 3, 1, 4)  # (B, KV, R, S, hd)
         scores = bmm_f32(qh, k_full[:, :, None].transpose(-1, -2)) / (hd ** 0.5)
         q_pos = start_pos + torch.arange(S, device=h.device)[:, None]
         k_pos = torch.arange(T, device=h.device)[None, :]
         scores = torch.where(k_pos <= q_pos, scores, float("-inf"))
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = bmm_f32(probs, v_full[:, :, None]).to(x.dtype)  # (B, KV, R, S, hd)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = bmm_f32(probs, v_full[:, :, None]).to(dt)  # (B, KV, R, S, hd)
         out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-    return h + _dense(out, wo).to(x.dtype)
+    return h + _dense(out, wo).to(dt)
 
 
 def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates) -> torch.Tensor:
@@ -468,8 +513,9 @@ def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates) -> torch.Tenso
 def _ffn_sublayer(
     layer: Params, h: torch.Tensor, config: LlamaConfig, gates: FusionGates
 ) -> torch.Tensor:
-    """h + ffn(rms_norm(h, ffn_norm)). Decode rows with bf16 weights in the
-    fused layout run the K7a wrapper (with the FFN and layer gates on);
+    """h + ffn(rms_norm(h, ffn_norm)). Decode rows in the fused layout run
+    the K7a wrapper (bf16 weights, with the FFN and layer gates on) or the
+    K7q wrapper (weight-only int8, with the int8 FFN and layer gates on);
     everything else runs the op sequence, which may reach K7."""
     p = layer["feed_forward"]
     nw = layer["ffn_norm"]
@@ -478,6 +524,10 @@ def _ffn_sublayer(
         return fused_ffn_block(h.reshape(B, D), nw, p["w13"], p["w2"], config.norm_eps).reshape(
             B, 1, D
         )
+    if "w13" in p and _weight_only_q8(p["w13"]) and S == 1 and gates.ffn_q8 and gates.layer:
+        w13, w2 = p["w13"], p["w2"]
+        return fused_ffn_block_q8(h.reshape(B, D), nw, w13["q"], w13["s"], w2["q"], w2["s"],
+                                  config.norm_eps).reshape(B, 1, D)
     return h + _feed_forward(p, rms_norm(h, nw, config.norm_eps), gates)
 
 
@@ -513,5 +563,12 @@ def forward(
             cache["k"][i], cache["v"][i], config, valid, pos, gates,
         )
         h = _ffn_sublayer(layer, h, config, gates)
+    out_w = params["output"]
+    if _weight_only_q8(out_w) and B * S <= 64 and gates.dense_q8:
+        # the final norm inside the int8 lm-head (decode, and prefill of up
+        # to 64 rows)
+        logits = fused_dense_q8(h.reshape(B * S, -1), out_w["q"], out_w["s"],
+                                norm_weight=params["norm"], eps=config.norm_eps)
+        return logits.reshape(B, S, -1), cache
     h = rms_norm(h, params["norm"], config.norm_eps)
-    return _dense(h, params["output"]), cache
+    return _dense(h, out_w), cache

@@ -1,4 +1,4 @@
-"""K7a and K7: the decode FFN in CUDA (``csrc/fused_ffn.cu``).
+"""K7a, K7 and K7q: the decode FFN in CUDA (``csrc/fused_ffn.cu``).
 
 K7a, port of prego_tpu/ops/fused_ffn.py::fused_ffn_block: returns
 ``h + ffn(rms_norm(h, norm_weight, eps))`` in h's dtype, with w13 the
@@ -10,10 +10,18 @@ cast to h's dtype, and the residual add in h's dtype.
 K7, port of ::fused_ffn: ``ffn(x)`` alone, silu(x.w1) * (x.w3) cast to
 x's dtype, then .w2, returned as (M, D) f32 (the caller casts and adds).
 
-On a CUDA tensor ``fused_ffn_block`` and ``fused_ffn`` launch their kernel
-(bf16; the kernel takes up to 8 decode rows a call, more go in calls of
-8); on a CPU tensor they run ``fused_ffn_block_reference``, the unfused op
-sequence ``rms_norm -> feed_forward -> + h``, and ``fused_ffn_reference``.
+K7q, port of ::fused_ffn_block_q8: K7a over weight-only int8 w13 (D, 2F)
+and w2 (F, D) with f32 column scales w13s (1, 2F) and w2s (1, D), in the
+JAX kernel's dequant convention (K4's): bf16 operands, f32 sums, w13's
+scales on the up products, ``a`` cast to bf16, w2's scales on the final
+sum, then the cast to h's dtype and the residual add.
+
+On a CUDA tensor ``fused_ffn_block``, ``fused_ffn`` and
+``fused_ffn_block_q8`` launch their kernel (bf16 activations; the kernel
+takes up to 8 decode rows a call, more go in calls of 8); on a CPU tensor
+they run ``fused_ffn_block_reference``, the unfused op sequence
+``rms_norm -> feed_forward -> + h``, ``fused_ffn_reference`` and
+``fused_ffn_block_q8_reference``.
 """
 
 from __future__ import annotations
@@ -30,9 +38,15 @@ KERNEL = CudaKernel(
     "fused_ffn.cu",
     {"prego_fused_ffn_block": [c_ptr] * 8 + [c_int] * 4 + [c_float, c_ptr]},
 )
-# K7 lives in the same library; its own entry keeps its own launch count
+# K7 and K7q live in the same library; their own entries keep their own
+# launch counts
 KERNEL_FFN = CudaKernel(
     "fused_ffn", "fused_ffn.cu", {"prego_fused_ffn": [c_ptr] * 6 + [c_int] * 4 + [c_ptr]},
+)
+KERNEL_Q8 = CudaKernel(
+    "fused_ffn",
+    "fused_ffn.cu",
+    {"prego_fused_ffn_block_q8": [c_ptr] * 10 + [c_int] * 4 + [c_float, c_ptr]},
 )
 
 MAX_DECODE_ROWS = 8  # rows one kernel call takes (the main path's decode M is at most 8)
@@ -66,7 +80,20 @@ def fused_ffn_block_reference(
     return h + feed_forward_reference(rms_norm(h, norm_weight, eps), w13, w2).to(h.dtype)
 
 
-def _check(name, x, w13, w2):
+def fused_ffn_block_q8_reference(
+    h: torch.Tensor, norm_weight: torch.Tensor, w13q: torch.Tensor, w13s: torch.Tensor,
+    w2q: torch.Tensor, w2s: torch.Tensor, eps: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of K7q, the JAX kernel's arithmetic: for bf16
+    h, the unfused int8 sequence (rms_norm, K4, silu * up, K4, add)."""
+    bf16 = torch.bfloat16
+    F = w2q.shape[0]
+    g13 = mm_f32(rms_norm(h, norm_weight, eps).to(bf16), w13q.to(bf16)) * w13s[0]
+    a = (torch.nn.functional.silu(g13[..., :F]) * g13[..., F:]).to(bf16)
+    return h + (mm_f32(a, w2q.to(bf16)) * w2s[0]).to(h.dtype)
+
+
+def _check(name, x, w13, w2, wdtype=torch.bfloat16):
     """Raise unless the kernel takes these operands; returns (M, D, F, the
     number of blocks sharing the F reduction of W2)."""
     M, D = x.shape
@@ -74,8 +101,8 @@ def _check(name, x, w13, w2):
     if M < 1 or D % 8 or F % 4:
         raise ValueError(f"{name}: M={M} (>= 1), D={D} (a multiple of 8), F={F} (of 4)")
     check_cuda_tensor("x", x, torch.bfloat16)
-    check_cuda_tensor("w13", w13, torch.bfloat16, (D, 2 * F))
-    check_cuda_tensor("w2", w2, torch.bfloat16, (F, D))
+    check_cuda_tensor("w13", w13, wdtype, (D, 2 * F))
+    check_cuda_tensor("w2", w2, wdtype, (F, D))
     return M, D, F, max(1, min(8, F // 128))
 
 
@@ -122,5 +149,40 @@ def fused_ffn_block(
         h.data_ptr(), norm_weight.data_ptr(), w13.data_ptr(), w2.data_ptr(), xn_t.data_ptr(),
         a_t.data_ptr(), part.data_ptr(), out.data_ptr(), M, D, F, splits, float(eps),
         stream_ptr(h.device),
+    )
+    return out
+
+
+def fused_ffn_block_q8(
+    h: torch.Tensor,  # (M, D)
+    norm_weight: torch.Tensor,  # (D,)
+    w13q: torch.Tensor,  # (D, 2F) int8
+    w13s: torch.Tensor,  # (1, 2F) f32
+    w2q: torch.Tensor,  # (F, D) int8
+    w2s: torch.Tensor,  # (1, D) f32
+    eps: float,
+) -> torch.Tensor:
+    """h + ffn(rms_norm(h)) over int8 weights, in h's dtype. CUDA: bf16 h
+    and norm weight, D a multiple of 8, F of 4."""
+    if not h.is_cuda:
+        return fused_ffn_block_q8_reference(h, norm_weight, w13q, w13s, w2q, w2s, eps)
+    M, D, F, splits = _check("fused_ffn_block_q8", h, w13q, w2q, torch.int8)
+    check_cuda_tensor("norm_weight", norm_weight, torch.bfloat16, (D,))
+    check_cuda_tensor("w13s", w13s, torch.float32, (1, 2 * F))
+    check_cuda_tensor("w2s", w2s, torch.float32, (1, D))
+    if M > MAX_DECODE_ROWS:
+        return torch.cat([
+            fused_ffn_block_q8(h[i : i + MAX_DECODE_ROWS], norm_weight, w13q, w13s, w2q, w2s, eps)
+            for i in range(0, M, MAX_DECODE_ROWS)])
+    out = torch.empty_like(h)
+    xn_t = torch.empty(D, M, dtype=torch.bfloat16, device=h.device)
+    a_t = torch.empty(F, M, dtype=torch.bfloat16, device=h.device)
+    part = torch.empty(splits, M, D, dtype=torch.float32, device=h.device)
+    KERNEL_Q8.launches += 1
+    KERNEL_Q8.call(
+        "prego_fused_ffn_block_q8",
+        h.data_ptr(), norm_weight.data_ptr(), w13q.data_ptr(), w13s.data_ptr(), w2q.data_ptr(),
+        w2s.data_ptr(), xn_t.data_ptr(), a_t.data_ptr(), part.data_ptr(), out.data_ptr(),
+        M, D, F, splits, float(eps), stream_ptr(h.device),
     )
     return out

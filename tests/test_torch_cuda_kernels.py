@@ -17,6 +17,7 @@ import torch
 from prego_tpu_torch.ops import decode_attention as da
 from prego_tpu_torch.ops import decode_attention_q8 as da8
 from prego_tpu_torch.ops import decode_attention_wo as dwo
+from prego_tpu_torch.ops import fused_dense as fd
 from prego_tpu_torch.ops import fused_ffn as ffn
 from prego_tpu_torch.ops import gru_cuda, gru_cuda_vjp, quant
 
@@ -452,3 +453,129 @@ def test_fused_decode_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         ffn.fused_ffn(x, torch.zeros(60, 352, dtype=torch.bfloat16, device=cuda_device),
                       torch.zeros(176, 60, dtype=torch.bfloat16, device=cuda_device))  # D % 8
+
+
+# K9: the f32 out (lm-head) differs from the plain version by the order of
+# f32 sums, as K4's (W8_REL_TOL), and by the norm: where the kernel's
+# 1 / sqrtf and torch.rsqrt round the row's scale an ulp apart, a normed
+# value may round to the other bf16 neighbour (2^-8 of one term of K). A
+# bf16 out (wqkv) rounds y once more, and the residual out (wo) rounds y and
+# then the sum: one bf16 ulp each, 2^-8 of values below max |want|.
+DENSE_F32_REL_TOL = W8_REL_TOL
+DENSE_BF16_REL_TOL = 2.0 ** -6
+# K3m: q8 and the int32 dots are exact on both sides; where expf and
+# torch.exp round p an ulp apart, a pv code moves one step (2^-14 of the
+# split's largest pv); the output rounds to bf16 (one ulp, 2^-8 relative)
+ATTN_MXU_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -7)
+
+
+def _dense_inputs(device, M, K, N, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda s, *shape: torch.from_numpy((rng.normal(0, 1, shape) * s).astype(np.float32))
+    q, s = quant.quantize_weight(mk(K ** -0.5, K, N))
+    bf = lambda a: a.to(device, torch.bfloat16)
+    return bf(mk(1.0, M, K)), q.to(device), s.to(device), bf(mk(0.1, K) + 1), bf(mk(1.0, M, N))
+
+
+def _dense_case(cuda_device, M, K, N, out):
+    x, q, s, nw, res = _dense_inputs(cuda_device, M, K, N, seed=M + N)
+    kw = dict(residual=res) if out == "res" else dict(
+        norm_weight=nw, out_dtype=torch.bfloat16 if out == "bf16" else torch.float32)
+    before = fd.KERNEL.launches
+    y = fd.fused_dense_q8(x, q, s, **kw)
+    torch.cuda.synchronize()
+    assert fd.KERNEL.launches == before + 1  # one call at any M (tiles above 8 rows)
+    assert y.dtype == (torch.float32 if out == "f32" else torch.bfloat16) and y.shape == (M, N)
+    want = fd.fused_dense_q8_reference(x, q, s, **kw)
+    tol = DENSE_F32_REL_TOL if out == "f32" else DENSE_BF16_REL_TOL
+    assert float((y.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
+    assert torch.equal(fd.fused_dense_q8(x, q, s, **kw), y)  # the same bits again
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("K,N,out", [(4096, 12288, "bf16"), (4096, 4096, "res"),
+                                     (4096, 32000, "f32"), (4096, 1000, "bf16"),
+                                     (128, 1000, "res"), (64, 24, "f32")])
+def test_fused_dense_q8_kernel_matches_plain(cuda_device, M, K, N, out):
+    """K9 at the 7B call shapes (norm + wqkv in bf16, wo + residual, norm +
+    lm-head in f32), ragged N and small K, 1 to 16 rows: the streaming path
+    up to 8, the tile path above, each with the three epilogues."""
+    _dense_case(cuda_device, M, K, N, out)
+
+
+def test_fused_dense_q8_lm_head_at_64_rows(cuda_device):
+    """A 64-row prefill takes K9 at the lm-head (B * S <= 64)."""
+    _dense_case(cuda_device, 64, 4096, 32000, "f32")
+
+
+def _ffn_q8_inputs(device, M, D, F, seed=0):
+    h, nw, w13, w2 = _ffn_inputs("cpu", M, D, F, seed)
+    w13q, w13s = quant.quantize_weight(w13.float())
+    w2q, w2s = quant.quantize_weight(w2.float())
+    return [a.to(device) for a in (h, nw, w13q, w13s, w2q, w2s)]
+
+
+@pytest.mark.parametrize("M,D,F", [(1, 64, 176), (3, 256, 512), (8, 512, 1000),
+                                   (1, 4096, 11008), (8, 4096, 11008),
+                                   (12, 512, 1000), (16, 4096, 11008)])  # in calls of 8 rows
+def test_fused_ffn_block_q8_kernel_matches_plain(cuda_device, M, D, F):
+    args = _ffn_q8_inputs(cuda_device, M, D, F, seed=M)
+    before = ffn.KERNEL_Q8.launches
+    out = ffn.fused_ffn_block_q8(*args, 1e-5)
+    torch.cuda.synchronize()
+    assert ffn.KERNEL_Q8.launches == before + (M + 7) // 8
+    assert out.dtype == torch.bfloat16 and out.shape == (M, D)
+    want = ffn.fused_ffn_block_q8_reference(*args, 1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **FFN_TOL)
+    assert torch.equal(ffn.fused_ffn_block_q8(*args, 1e-5), out)  # the same bits again
+
+
+@pytest.mark.parametrize("B,KV,R,T,hd", [(2, 2, 1, 128, 128), (3, 4, 2, 192, 64),
+                                         (8, 32, 1, 512, 128), (8, 8, 4, 512, 128),
+                                         (2, 2, 8, 256, 256), (1, 3, 3, 100, 48)])
+def test_decode_attention_q8_mxu_kernel_matches_plain(cuda_device, B, KV, R, T, hd):
+    """K3m at K3's shapes, ragged bounds among them 0 and T."""
+    args = _attn_q8_inputs(cuda_device, B, KV, R, T, hd, seed=R)
+    valid = torch.tensor(([0, T, 1, 77, 63, 65, 300, 511] * B)[:B], dtype=torch.int32,
+                         device=cuda_device).clamp(max=T)
+    before = da8.KERNEL_MXU.launches, da8.KERNEL.launches
+    out = da8.decode_attention_q8(*args, valid, int8_mxu=True)
+    torch.cuda.synchronize()
+    assert (da8.KERNEL_MXU.launches, da8.KERNEL.launches) == (before[0] + 1, before[1])
+    want = da8.decode_attention_q8_mxu_reference(*args, valid)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_MXU_TOL)
+    assert torch.all(out[valid == 0] == 0)
+    for bound in (1, T // 2 + 1):  # a scalar bound reaches the same kernel
+        torch.testing.assert_close(
+            da8.decode_attention_q8(*args, bound, int8_mxu=True).float(),
+            da8.decode_attention_q8_mxu_reference(*args, bound).float(), **ATTN_MXU_TOL)
+    assert torch.equal(da8.decode_attention_q8(*args, valid, int8_mxu=True), out)
+
+
+def test_int8_fusion_kernels_refuse_what_they_cannot_take(cuda_device):
+    x, q, s, nw, res = _dense_inputs(cuda_device, 2, 64, 24)
+    with pytest.raises(ValueError):
+        fd.fused_dense_q8(x, q, s, norm_weight=nw, residual=res)  # both modes
+    with pytest.raises(ValueError):
+        fd.fused_dense_q8(x, q, s)  # neither
+    with pytest.raises(ValueError):
+        fd.fused_dense_q8(x.float(), q, s, norm_weight=nw)  # f32 x
+    with pytest.raises(ValueError):
+        fd.fused_dense_q8(x, q, s, residual=res.float())  # f32 residual
+    with pytest.raises(ValueError):
+        fd.fused_dense_q8(x, q, s, norm_weight=nw, out_dtype=torch.float16)  # f16 out
+    with pytest.raises(ValueError):
+        fd.fused_dense_q8(x, q[:, :20].contiguous(), s[:, :20].contiguous(), norm_weight=nw)
+    h, nw, w13q, w13s, w2q, w2s = _ffn_q8_inputs(cuda_device, 2, 64, 176)
+    with pytest.raises(ValueError):
+        ffn.fused_ffn_block_q8(h, nw, w13q.float(), w13s, w2q, w2s, 1e-5)  # f32 weights
+    with pytest.raises(ValueError):
+        ffn.fused_ffn_block_q8(h, nw, w13q, w13s[:, :176].contiguous(), w2q, w2s, 1e-5)
+    with pytest.raises(ValueError):
+        ffn.fused_ffn_block_q8(h.float(), nw, w13q, w13s, w2q, w2s, 1e-5)  # f32 stream
+    args = _attn_q8_inputs(cuda_device, 1, 2, 9, 64, 64)
+    with pytest.raises(ValueError):
+        da8.decode_attention_q8(*args, 3, int8_mxu=True)  # R above 8
+    args = _attn_q8_inputs(cuda_device, 1, 2, 1, 64, 24)
+    with pytest.raises(ValueError):
+        da8.decode_attention_q8(*args, 3, int8_mxu=True)  # hd not a multiple of 16

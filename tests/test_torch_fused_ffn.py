@@ -1,7 +1,9 @@
 """Fused-FFN parity: the port's plain version of K7a against prego_tpu's
 fused_ffn_block (interpret mode) and against the unfused JAX sequence
-rms_norm -> _feed_forward -> + h, and of K7 against prego_tpu's fused_ffn
-(interpret mode) and fused_ffn_reference, on the same numpy inputs."""
+rms_norm -> _feed_forward -> + h, of K7 against prego_tpu's fused_ffn
+(interpret mode) and fused_ffn_reference, and of K7q against prego_tpu's
+fused_ffn_block_q8 (interpret mode) and the port's unfused int8 sequence,
+on the same numpy inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,13 +13,21 @@ import torch
 from prego_tpu.models.llama.model import _feed_forward, rms_norm
 from prego_tpu.ops.fused_ffn import fused_ffn as jax_fused_ffn
 from prego_tpu.ops.fused_ffn import fused_ffn_block as jax_fused_ffn_block
+from prego_tpu.ops.fused_ffn import fused_ffn_block_q8 as jax_fused_ffn_block_q8
 from prego_tpu.ops.fused_ffn import fused_ffn_reference as jax_fused_ffn_reference
+from prego_tpu.ops.quant import quantize_weight as jax_quantize_weight
+from prego_tpu_torch.models.llama.model import _feed_forward as port_feed_forward
+from prego_tpu_torch.models.llama.model import fusion_gates
 from prego_tpu_torch.ops import fused_ffn as port
 from tests.torch_parity import n, t
 
 # f32 on both sides: the Pallas kernel sums W2 over F tiles, the plain
 # version in one product; summation order only
 TOL = dict(rtol=2e-5, atol=2e-5)
+# K7q: the JAX package's bar for the int8 kernel against the unfused int8
+# sequence (tests/test_fused_ffn.py): both sides cast xn and a to bf16,
+# so an f32 sum taken in another order can move a bf16 rounding
+Q8_TOL = dict(rtol=2e-3, atol=2e-3)
 EPS = 1e-5
 
 
@@ -101,3 +111,44 @@ def test_ffn_alone_takes_plain_version_on_cpu():
     out = port.fused_ffn(t(x), t(w13), t(w2))
     assert port.KERNEL_FFN.launches == before
     assert torch.equal(out, port.fused_ffn_reference(t(x), t(w13), t(w2)))
+
+
+def _q8_inputs(seed, M, D, F):
+    h, nw, w13, w2 = _inputs(seed, M, D, F)
+    w13q, w13s = (np.asarray(a) for a in jax_quantize_weight(jnp.asarray(w13)))
+    w2q, w2s = (np.asarray(a) for a in jax_quantize_weight(jnp.asarray(w2)))
+    return h, nw, w13q, w13s, w2q, w2s
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("M,D,F", [(8, 256, 512), (1, 128, 256), (3, 128, 384)])
+def test_q8_block_matches_pallas_interpret(M, D, F, dtype):
+    h, nw, w13q, w13s, w2q, w2s = _q8_inputs(M * 13 + F, M, D, F)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    want = jax_fused_ffn_block_q8(
+        jnp.asarray(h).astype(jdt), jnp.asarray(nw).astype(jdt), jnp.asarray(w13q),
+        jnp.asarray(w13s), jnp.asarray(w2q), jnp.asarray(w2s), EPS, f_block=128, interpret=True,
+    )
+    got = port.fused_ffn_block_q8(t(h, tdt), t(nw, tdt), t(w13q), t(w13s), t(w2q), t(w2s), EPS)
+    assert got.dtype == tdt and tuple(got.shape) == (M, D)
+    np.testing.assert_allclose(n(got), n(want), **Q8_TOL)
+
+
+def test_q8_block_is_the_unfused_int8_sequence_in_bf16():
+    """For a bf16 stream the plain K7q is, bit for bit, what the port's
+    model runs without the gate: rms_norm, K4, silu * up, K4, cast, add."""
+    h, nw, w13q, w13s, w2q, w2s = (t(a) for a in _q8_inputs(4, 3, 128, 256))
+    h, nw = h.to(torch.bfloat16), nw.to(torch.bfloat16)
+    got = port.fused_ffn_block_q8(h, nw, w13q, w13s, w2q, w2s, EPS)
+    leaves = {"w13": {"q": w13q, "s": w13s}, "w2": {"q": w2q, "s": w2s}}
+    x = port.rms_norm(h, nw, EPS)[:, None]
+    want = h + port_feed_forward(leaves, x, fusion_gates())[:, 0]
+    assert torch.equal(got, want)
+
+
+def test_q8_block_takes_plain_version_on_cpu():
+    args = [t(a) for a in _q8_inputs(2, 2, 64, 128)]
+    before = port.KERNEL_Q8.launches
+    out = port.fused_ffn_block_q8(*args, EPS)
+    assert port.KERNEL_Q8.launches == before
+    assert torch.equal(out, port.fused_ffn_block_q8_reference(*args, EPS))
