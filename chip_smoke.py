@@ -8,11 +8,15 @@
    PyTorch version at the shapes the main path gives it, in bf16 (int8
    for the quantized kernels), timing both with CUDA events, beside its
    roofline bound and, where one PyTorch call computes the same function,
-   that call's time. The cuDNN GRU layer is timed beside the trainable GRU
-   layer as a yardstick, the bf16 decode fusions (K8, K8u, K7) and the
-   int8 ones (K9 in both modes at the 7B wqkv, wo and lm-head shapes, K7q
-   at the 7B FFN) beside the unfused sequence each replaces, and K3m (K3's
-   int8_mxu mode, which no path runs) beside K3's default mode.
+   that call's time; the decode kernels' inputs cycle through copies that
+   pass the L2 cache, and K2's and K4's cases also read each call's device
+   time from torch.profiler (K4 at decode M 1 and 8, at M 64, 512 and 2048
+   on the 7B w13, M 256 on wqkv and M 512 on wo). The cuDNN GRU layer is
+   timed beside the trainable GRU layer as a yardstick, the bf16 decode
+   fusions (K8, K8u, K7) and the int8 ones (K9 in both modes at the 7B
+   wqkv, wo and lm-head shapes, K7q at the 7B FFN) beside the unfused
+   sequence each replaces, and K3m (K3's int8_mxu mode, which no path
+   runs) beside K3's default mode.
 2. Checks the port against its f32 CPU path: MiniROAD eval at full width
    on two video prefixes, one MiniROAD train step at full width (K1 + K6,
    bf16 stream, dropout 0) on 16 windows, a 2-layer LLaMA at 7B width
@@ -107,7 +111,7 @@ TOL = {
     # h_prev.W_hh only; where an f32 sum straddles a bf16 boundary of dHG,
     # one bf16 ulp (2^-8) enters the dh chain, which z and W_hh contract
     "gru_bwd": 2.0 ** -6,
-    # p rounded to bf16 against the split's max, not the row's: 2^-9 x |v|
+    # p rounded to bf16 against the block's max, not the row's: 2^-9 x |v|
     # (< 5) plus the output's own bf16 rounding
     "decode_attention": 2.0 ** -5,
     # the bf16 output h + y (|out| < 8) rounds one ulp apart when the f32
@@ -123,8 +127,8 @@ TOL = {
     # exact int32 sums rounded once to f32 and scaled in the same order on
     # both sides: equal, allowed one ulp (2^-21 at |y| < 8)
     "int8xint8_matmul": 2.0 ** -20,
-    # K8, both bodies, and K8u: o is K2's bf16 output (its p rounded
-    # against the split's max, 2^-5 above), carried into y = o.wo with wo ~
+    # K8, both bodies, and K8u: o is the bf16 attention output, its p
+    # rounded against a split's max as K2's (2^-5 above), carried into y = o.wo with wo ~
     # N(0, 1 / (H hd)), about one such difference; with the residual, the
     # bf16 output h + y (|out| < 8) rounds one ulp (2^-5) apart besides
     "decode_attention_wo": 2.0 ** -4,
@@ -195,6 +199,50 @@ def time_ms_cycle(fn, arg_sets, iters, warmup=2):
 def copies_past_l2(make, nbytes_one, at_least=2):
     """Input sets made by ``make()`` until together they pass 100 MB."""
     return [make() for _ in range(max(at_least, math.ceil(100e6 / nbytes_one)))]
+
+
+# (what was timed, profiler sessions it took or None) for every device_ms_cycle
+DEVICE_MS_SESSIONS = []
+
+
+def device_ms_cycle(fn, arg_sets, iters=20, attempts=3, what=""):
+    """The device's own time a call of ``fn`` over ``arg_sets`` in turn:
+    the span of every kernel, copy and set the calls ran, from
+    torch.profiler, over the calls; beside a host-clock time it separates
+    the enqueue from the device work. On some hosts a profiler session now
+    and then records no device event at all: the session is run again, and
+    after ``attempts`` empty ones the time is None (not measured). Each
+    reading's count of sessions goes to DEVICE_MS_SESSIONS."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for n in range(1, attempts + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            DEVICE_MS_SESSIONS.append((what, n))
+            if n > 1:
+                log(f"  torch.profiler: {what} read in session {n}")
+            return sum(spans) / 1e3 / iters
+    DEVICE_MS_SESSIONS.append((what, None))
+    log(f"  torch.profiler recorded no device event for {what} in {attempts} sessions: "
+        "not measured")
+    return None
+
+
+def device_ms_report():
+    """How many profiler sessions the device-time readings took."""
+    retried = [f"{w}: {n}" for w, n in DEVICE_MS_SESSIONS if n != 1]
+    return dict(readings=len(DEVICE_MS_SESSIONS), not_one_session=retried,
+                not_measured=[w for w, n in DEVICE_MS_SESSIONS if n is None])
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def max_err(a, b):
@@ -323,10 +371,18 @@ def check_kernels(dev):
     rows["gru_bwd"]["max_abs_err"] = max(c["max_abs_err"] for c in cases)
 
     # K2 at the 7B decode shapes: B 8, 32 kv heads, R 1, hd 128, T 512,
-    # ragged bounds including 0 and T; and a GQA case with R = 4
+    # ragged bounds including 0 and T; and a GQA case with R = 4. Inputs
+    # cycle through copies that pass the L2 cache, for K2 and the library
+    # call alike, as a decode step reads each layer's cache from memory
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
     cases = []
     for B_, KV, R in ((8, 32, 1), (8, 8, 4)):
-        q, k, v = mk(1.0, B_, KV, R, 128), mk(1.0, B_, KV, 512, 128), mk(1.0, B_, KV, 512, 128)
+        sets = copies_past_l2(lambda: tuple(
+            torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16)
+            for shape in ((B_, KV, R, 128), (B_, KV, 512, 128), (B_, KV, 512, 128))),
+            2 * B_ * KV * 512 * 128 * 2)
+        q, k, v = sets[0]
         valid = torch.tensor([0, 512, 1, 77, 255, 256, 300, 511], dtype=torch.int32, device=dev)
         out = da.decode_attention(q, k, v, valid)
         ref = da.decode_attention_reference(q, k, v, valid)
@@ -335,16 +391,24 @@ def check_kernels(dev):
         # the same function as one library call: the bounds as a boolean mask
         mask = (torch.arange(512, device=dev)[None, :] < valid[:, None])[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        k2 = lambda q, k, v: da.decode_attention(q, k, v, valid)
+        lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask)
         used = int(valid.sum())  # positions below the bounds: what this data needs read
         cases.append(dict(
             R=R, max_abs_err=max_err(out, ref),
-            ms=time_ms(lambda: da.decode_attention(q, k, v, valid), 50),
-            plain_ms=time_ms(lambda: da.decode_attention_reference(q, k, v, valid), 20),
+            ms=time_ms_cycle(k2, sets, 50),
+            device_ms=device_ms_cycle(k2, sets, what=f"K2 R {R}"),
+            plain_ms=time_ms_cycle(lambda q, k, v: da.decode_attention_reference(q, k, v, valid),
+                                   sets, 20),
             **bound(2 * 2 * used * KV * R * 128,
                     2 * used * KV * 128 * 2 + nbytes(q, valid, out)),
-            library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask), 50),
+            library_ms=time_ms_cycle(lib, sets, 50),
+            library_device_ms=device_ms_cycle(lib, sets, what=f"SDPA R {R}"),
         ))
-        log_case("decode_attention", f"B={B_} KV={KV} R={R} T=512", cases[-1])
+        log_case("decode_attention", f"B={B_} KV={KV} R={R} T=512, {len(sets)} input sets", cases[-1])
+        c = cases[-1]
+        log(f"  device ms: K2 {fmt_ms(c['device_ms'])}, SDPA {fmt_ms(c['library_device_ms'])}; "
+            f"host-clock factor of SDPA {c['ms'] / c['library_ms']:.3f}")
     rows["decode_attention"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases))
     del rows["decode_attention"]["R"]
 
@@ -421,11 +485,14 @@ def check_quant_kernels(dev):
         log_case("decode_attention_q8", f"B=8 KV={KV} R={R} T=512", case)
         log(f"  K2 on the dequantized bf16 cache, same bounds: {case['k2_bf16_ms']:.4f} ms")
 
-    # K4 and K5 at the 7B projections, decode M 1 and 8, and one prefill
-    # shape (M 512 on w13); the library calls: torch.mm on weights
-    # dequantized to bf16 beforehand, torch._int_mm and the two scales
+    # K4 and K5 at the 7B projections, decode M 1 and 8, and prefill
+    # shapes: w13 at M 64, 512 and 2048 and wqkv at M 256 (K4's tiles of 64
+    # and 256 rows), wo at M 512 (tiles of 128 rows); the library calls:
+    # torch.mm on weights dequantized to bf16 beforehand, torch._int_mm and
+    # the two scales
     shapes = [(M, name, K, N) for M in (1, 8) for name, (K, N) in PROJ_7B.items()]
-    shapes.append((512, "w13", *PROJ_7B["w13"]))
+    shapes += [(M, "w13", *PROJ_7B["w13"]) for M in (64, 512, 2048)]
+    shapes += [(256, "wqkv", *PROJ_7B["wqkv"]), (512, "wo", *PROJ_7B["wo"])]
     for M, name, K, N in shapes:
         def make():
             x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
@@ -439,16 +506,21 @@ def check_quant_kernels(dev):
         iters = 20 if M > 8 else 50
         y = quant.int8_matmul(x, q, s)
         wd = [(a[0], (a[1].float() * a[2]).to(bf16)) for a in sets]
+        mm = lambda a, w: torch.mm(a, w, out_dtype=torch.float32)
         case = dict(
             M=M, proj=name, max_abs_err=max_err(y, quant.int8_matmul_reference(x, q, s)),
             ms=time_ms_cycle(quant.int8_matmul, w8, iters),
+            device_ms=device_ms_cycle(quant.int8_matmul, w8, what=f"K4 {name} M {M}"),
             plain_ms=time_ms_cycle(quant.int8_matmul_reference, w8, iters),
             **bound(2 * M * K * N, nbytes(x, q, s, y)),
-            library_ms=time_ms_cycle(lambda a, w: torch.mm(a, w, out_dtype=torch.float32), wd,
-                                     iters),
+            library_ms=time_ms_cycle(mm, wd, iters),
+            library_device_ms=device_ms_cycle(mm, wd, what=f"torch.mm {name} M {M}"),
         )
         cases["int8_matmul"].append(case)
         log_case("int8_matmul", f"{name} M={M} K={K} N={N}", case)
+        log(f"  device ms: K4 {fmt_ms(case['device_ms'])}, torch.mm "
+            f"{fmt_ms(case['library_device_ms'])}; host-clock factor of torch.mm "
+            f"{case['ms'] / case['library_ms']:.3f}")
 
         y8 = quant.int8xint8_matmul(xq, xs, q, s)
         # torch._int_mm takes more than 16 rows: fewer are padded to 32
@@ -490,6 +562,10 @@ def check_quant_kernels(dev):
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step) else "operations",
             library_ms=None if None in lib else sum(lib),
         )
+        if "device_ms" in step[0]:  # K4's cases read the device time too
+            for key in ("device_ms", "library_device_ms"):
+                vals = [c[key] for c in step]
+                rows[name][key] = None if None in vals else sum(vals)
     for name, row in rows.items():
         if not row["max_abs_err"] <= TOL[name]:
             raise AssertionError(f"{name}: max_abs_err {row['max_abs_err']} > {TOL[name]}")
@@ -1499,6 +1575,7 @@ def main():
     log(f"launches in phase 1 of the kernels on no path: {phase1}")
     if not all(n > 0 for n in phase1.values()):
         raise AssertionError(f"a kernel on no path was not launched in phase 1: {phase1}")
+    log(f"device-time readings: {device_ms_report()}")
     layer = gru_layer_yardstick(dev)
     cpu = check_against_cpu(dev)
     llms, llm_1b, cfg, launches, report = run_main_path(dev)
@@ -1514,6 +1591,7 @@ def main():
                                 "quant_kernel_cases": q_cases, "fused_kernel_cases": f_cases,
                                 "q8_fused_kernel_cases": q8_cases,
                                 "off_path_phase1_launches": phase1,
+                                "device_ms_sessions": device_ms_report(),
                                 "decode_ms_per_step": decode,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
                                 "total_s": time.perf_counter() - t_start}}))

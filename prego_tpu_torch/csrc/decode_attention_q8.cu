@@ -31,7 +31,7 @@
 // half of K2's bf16 traffic) with 4 FLOPs per cache element: memory bound,
 // like K2, and at the decode shapes latency bound, since few blocks run.
 //
-// Design: K2's split-K flash decoding (csrc/decode_attention.cu). Pass 1
+// Design: split-K flash decoding, as K8's (csrc/decode_split.cuh). Pass 1
 // runs one block per (split of 64 positions, g, b) and returns at once
 // past valid[b], which stays on the device. Scores: two threads per
 // position, each reading alternate 16-byte runs of the key row (16 int8
@@ -41,7 +41,7 @@
 // the 4 warps in warp order through shared memory. pv is rounded to bf16
 // against the split's own max, not the row's (the plain version uses the
 // row's): each pv moves by at most 2^-9 of itself between the two. Pass 2
-// merges the live splits with the log-sum-exp rule, as in K2. No atomics.
+// merges the live splits with the log-sum-exp rule, as in K8. No atomics.
 // K3m (template flag kMxu) keeps the layout: q8 . k with __dp4a on the
 // 16-byte key runs; for PV, a lane reads 4 consecutive value rows of its
 // 16 channels, transposes the 4 x 4 byte blocks with byte permutes so that

@@ -21,7 +21,7 @@
 // makes one call per layer where the unfused path makes four (K2, the wo
 // product, the cast and the add), which is what counts on a host-bound
 // decode step.
-//   1. pass 1 of split-K flash decoding (decode_split.cuh), K2's own;
+//   1. pass 1 of split-K flash decoding (decode_split.cuh);
 //   2. merge + project (grid D / 64 x H heads): a block first issues its
 //      loads of head h's hd rows of wo for its 64 columns (registers), then
 //      merges head h's live splits for every row b into o (bf16 values, in
@@ -29,8 +29,7 @@
 //      over its rows: f32 partials (H, B, D). Every column block repeats
 //      the small merge of its head (B x live x hd f32 reads from L2); that
 //      costs less than the launch a separate merge pass would add, and it
-//      keeps o out of device memory. K2's combine pass writes the same bf16
-//      values with the same arithmetic.
+//      keeps o out of device memory.
 //   3. reduce (one thread per output): the H partials summed in head
 //      order, written as f32 or as h + bf16(sum).
 // No float atomics: two runs give the same bits.

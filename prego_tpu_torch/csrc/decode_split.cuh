@@ -1,5 +1,5 @@
-// Pass 1 of split-K flash decoding and the log-sum-exp merge, shared by
-// K2 (decode_attention.cu) and K8 / K8u (decode_attention_wo.cu).
+// Pass 1 of split-K flash decoding and the log-sum-exp merge of K8 / K8u
+// (decode_attention_wo.cu).
 //
 // Pass 1 runs one block per (split, g, b); a split is kSplit = 64
 // consecutive positions. A block whose split starts at or past valid[b]

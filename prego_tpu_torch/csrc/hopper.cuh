@@ -1,0 +1,141 @@
+// Hopper's asynchronous copy and barrier primitives, as inline PTX, for
+// the kernels that use them (K2 in decode_attention.cu, K4 in
+// w8_matmul.cuh): mbarriers, bulk and tensor (TMA) copies, cp.async with
+// an mbarrier arrival, the async-proxy fence, named barriers, and wgmma's
+// shared-memory descriptors and fences; and the device's SM count, which
+// sizes their grids. Addresses of shared memory are 32-bit shared-window
+// addresses (smem_u32).
+#pragma once
+
+#include <stdint.h>
+
+#include <cuda_runtime.h>
+
+namespace hopper {
+// Internal linkage, as in w8_matmul.cuh: each library keeps its own copy,
+// num_sms's static included
+namespace {
+
+// The current device's SM count, read once
+inline int num_sms() {
+    static const int n = [] {
+        int dev = 0, count = 132;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+        return count;
+    }();
+    return n;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// makes the barriers' initialisation visible to the async proxy and the cluster
+__device__ __forceinline__ void fence_mbarrier_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival that also expects `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// the box of a 2-d tensor map at (c0 innermost, c1), completing on `bar`;
+// the map must live in parameter, constant or global memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, int c0, int c1,
+                                            uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(bar)
+        : "memory");
+}
+
+// cp.async of 8 bytes; src_bytes 0 writes zeros (src must still be a
+// valid address)
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, uint32_t src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+}
+
+// one arrival on `bar` when this thread's earlier cp.asyncs have landed,
+// counted against the barrier's expected arrivals
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma's operand reads, bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier over `threads` threads (whole warps) under id `id` (1-15)
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor with the 128-byte swizzle:
+// start address, leading and stride byte offsets (each a multiple of 16)
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+           (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+}  // namespace
+}  // namespace hopper

@@ -1,6 +1,6 @@
 // K4 and K5: the int8 serving matmuls on Hopper.
 //
-// Replace prego_tpu/ops/quant.py::int8_matmul (Pallas body
+// Replace prego_tpu/ops/quant.py::int8_matmul (quant.py:80, Pallas body
 // _int8_matmul_kernel) and ::int8xint8_matmul (_int8xint8_matmul_kernel):
 //   K4  y (M, N) f32 = (bf16(x) . bf16(q)) * s       x (M, K) bf16
 //   K5  y (M, N) f32 = float(xq . q) * x_s * s       xq (M, K) int8, x_s (M,) f32
@@ -12,34 +12,32 @@
 //
 // What bounds them here: at decode (M = batch <= 8) each weight byte is
 // used M times, so a projection streams its int8 weights once (the 7B
-// decode step reads 6.7 GB of them, 2.0 ms at 3.35 TB/s) and the work is
-// to keep enough loads in flight. At prefill (M = B x S, up to thousands
-// of rows) the products bound them, on the tensor cores.
+// decode step reads 6.7 GB of them, 2.0 ms at 3.35 TB/s), the work is to
+// keep enough loads in flight, and the host's launches weigh as much. At
+// prefill (M = B x S, up to thousands of rows) the products bound them, on
+// the tensor cores.
 //
-// Design: two paths, picked by M.
-//   * M <= 8, weight streaming (GEMV). A block owns 128 output columns and
-//     one split of K; each thread reads 8 consecutive int8 columns of a
-//     row (an 8-byte load; a warp reads two 128-byte row segments) for M
-//     rows of x staged in shared memory 256 rows at a time. K4 converts
-//     the bytes to f32 exactly (common.cuh) and uses f32 FMAs (its kernel
-//     is in w8_matmul.cuh, shared with K9's fused_dense_q8.cu); K5 reads 4
-//     rows at once, transposes the 4 x 4 byte blocks with byte permutes
-//     so that one register holds 4 consecutive k of a column, and uses
-//     __dp4a (4 int8 products into int32). The 16 row groups of a block
-//     are summed with a shuffle and through shared memory in a fixed
-//     order; splits of K go to a scratch (S, M, N) that a second launch
-//     sums in split order and scales: no atomics, the same bits every run.
-//     Splits are chosen so that about 4 blocks run per SM.
-//   * M > 8, tensor-core tiles (K4's in w8_matmul.cuh, shared with K9):
-//     64 x 128 output tiles, 4 warps of 32 x 64,
-//     mma.sync m16n8k16 bf16 (K4) or m16n8k32 s8 (K5). The weight tile is
-//     read row-major with 8-byte loads. K4 converts it to bf16 and keeps it
-//     (k, n) in shared memory, where ldmatrix.trans hands the mma its B
-//     operand; K5 needs 4 consecutive k of a column in a register, and
+// K4's design is in w8_matmul.cuh (shared with K9): at M <= 8 the
+// streaming GEMV with its splits of K summed in a thread block cluster
+// (one launch, no scratch); above, a pipelined wgmma kernel fed by TMA and
+// cp.async, the int8 weights converted to bf16 in shared memory.
+//
+// K5 keeps its first design:
+//   * M <= 8, weight streaming (GEMV) in K4's layout: a block owns 128
+//     output columns and one split of K, reads 4 rows at once, transposes
+//     the 4 x 4 byte blocks with byte permutes so that one register holds 4
+//     consecutive k of a column, and uses __dp4a (4 int8 products into
+//     int32). The 16 row groups of a block are summed with a shuffle and
+//     through shared memory in a fixed order; splits of K go to a scratch
+//     (S, M, N) that a second launch sums in split order and scales: no
+//     atomics, the same bits every run.
+//   * M > 8, tensor-core tiles: 64 x 128 output tiles, 4 warps of 32 x 64,
+//     mma.sync m16n8k32 s8. The weight tile is read row-major with 8-byte
+//     loads; the mma needs 4 consecutive k of a column in a register, and
 //     ldmatrix.trans does not move 8-bit elements, so each thread
-//     transposes 4 x 4 byte blocks with byte permutes and stores the
-//     tile (n, k). One shared stage; the next stage's global loads are
-//     held in registers while the current one's products run.
+//     transposes 4 x 4 byte blocks with byte permutes and stores the tile
+//     (n, k). One shared stage; the next stage's global loads are held in
+//     registers while the current one's products run.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -57,11 +55,24 @@ constexpr int kRowGroups = w8::kRowGroups;
 constexpr int kChunk = w8::kChunk;
 using w8::split_rows;
 
-// K5's tiles keep K4's layout (w8_matmul.cuh)
-constexpr int kTileThreads = w8::kTileThreads;
-constexpr int kBM = w8::kBM, kBN = w8::kBN;
-constexpr int kBK8 = 64;  // K5: int8 depth a stage
-using w8::load_w16;
+// K5's tiles
+constexpr int kTileThreads = 128;
+constexpr int kBM = 64, kBN = 128;
+constexpr int kBK8 = 64;  // int8 depth a stage
+
+// q[gk, gn .. gn + 15] as 4 words, zero past the edges. A row of q starts
+// 8-byte aligned only (N a multiple of 8, 1000 for one), so two 8-byte loads.
+__device__ __forceinline__ void load_w16(const int8_t* __restrict__ q, int gk, int gn, int K,
+                                         int N, unsigned int* w) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        uint2 raw = make_uint2(0u, 0u);
+        if (gk < K && gn + 8 * h < N)
+            raw = *reinterpret_cast<const uint2*>(q + static_cast<size_t>(gk) * N + gn + 8 * h);
+        w[2 * h] = raw.x;
+        w[2 * h + 1] = raw.y;
+    }
+}
 
 __device__ __forceinline__ unsigned int ld32(const void* p) {
     return *reinterpret_cast<const unsigned int*>(p);
@@ -76,7 +87,7 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned int* a, unsigned i
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ---- M <= 8: weight streaming (K4's kernel is w8::w8_gemv_kernel) ----
+// ---- K5, M <= 8: weight streaming ----
 
 template <int M>
 __global__ void __launch_bounds__(kGemvThreads) w8a8_gemv_kernel(
@@ -148,16 +159,6 @@ __global__ void __launch_bounds__(kGemvThreads) w8a8_gemv_kernel(
 }
 
 // splits summed in order, then the scales
-__global__ void __launch_bounds__(256) w8_reduce_kernel(
-    const float* __restrict__ part, const float* __restrict__ scale, float* __restrict__ out,
-    int MN, int N, int S) {
-    const int i = blockIdx.x * 256 + threadIdx.x;
-    if (i >= MN) return;
-    float y = 0.f;
-    for (int s = 0; s < S; ++s) y += part[static_cast<size_t>(s) * MN + i];
-    out[i] = y * scale[i % N];
-}
-
 __global__ void __launch_bounds__(256) w8a8_reduce_kernel(
     const int* __restrict__ part, const float* __restrict__ x_scale,
     const float* __restrict__ scale, float* __restrict__ out, int MN, int N, int S) {
@@ -168,7 +169,7 @@ __global__ void __launch_bounds__(256) w8a8_reduce_kernel(
     out[i] = static_cast<float>(y) * x_scale[i / N] * scale[i % N];
 }
 
-// ---- M > 8: tensor-core tiles (K4's kernel is w8::w8_tile_kernel) ----
+// ---- K5, M > 8: tensor-core tiles ----
 
 __global__ void __launch_bounds__(kTileThreads) w8a8_tile_kernel(
     const int8_t* __restrict__ xq, const float* __restrict__ x_scale,
@@ -284,28 +285,27 @@ struct W8A8Gemv {
 }  // namespace
 
 // Splits of K for the streaming path (M <= 8); 0 selects the tile path.
+// K4 sums its splits in a cluster, so takes at most w8::kMaxClusterSplits.
 PREGO_EXPORT int prego_int8_matmul_splits(int M, int K, int N) {
+    return M > kMaxGemvM ? 0 : w8::num_splits(K, N, w8::kMaxClusterSplits);
+}
+
+// K5's splits, summed by a second launch
+PREGO_EXPORT int prego_int8xint8_matmul_splits(int M, int K, int N) {
     return M > kMaxGemvM ? 0 : w8::num_splits(K, N);
 }
 
-// K4: out (M, N) f32 = (x (M, K) bf16 . q (K, N) int8) * s (N,) f32.
-// part is f32 scratch (splits, M, N), splits = prego_int8_matmul_splits.
-// K and N multiples of 8.
-PREGO_EXPORT int prego_int8_matmul(const void* x, const void* q, const void* s, void* part,
-                                   void* out, int M, int K, int N, int splits, void* stream) {
+// K4: out (M, N) f32 = (x (M, K) bf16 . q (K, N) int8) * s (N,) f32, one
+// launch. splits = prego_int8_matmul_splits (0: the tile path). K and N
+// multiples of 8.
+PREGO_EXPORT int prego_int8_matmul(const void* x, const void* q, const void* s, void* out, int M,
+                                   int K, int N, int splits, void* stream) {
     if (M < 1 || K < 8 || N < 8 || K % 8 != 0 || N % 8 != 0 ||
         splits != prego_int8_matmul_splits(M, K, N))
         return PREGO_BAD_ARGUMENT;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (splits == 0) {
-        return w8::launch_tile(x, q, s, out, M, K, N, st);
-    }
-    cudaError_t err = w8::launch_gemv(x, q, part, M, K, N, splits, st);
-    if (err != cudaSuccess) return err;
-    w8_reduce_kernel<<<(M * N + 255) / 256, 256, 0, st>>>(
-        static_cast<const float*>(part), static_cast<const float*>(s), static_cast<float*>(out),
-        M * N, N, splits);
-    return cudaGetLastError();
+    if (splits == 0) return w8::launch_tile(x, q, s, out, M, K, N, st);
+    return w8::launch_gemv_cluster(x, q, s, out, M, K, N, splits, st);
 }
 
 // K5: out (M, N) f32 = float(xq (M, K) int8 . q (K, N) int8) * x_scale (M,)
@@ -314,7 +314,7 @@ PREGO_EXPORT int prego_int8xint8_matmul(const void* xq, const void* x_scale, con
                                         const void* s, void* part, void* out, int M, int K,
                                         int N, int splits, void* stream) {
     if (M < 1 || K < 16 || N < 8 || K % 16 != 0 || N % 8 != 0 ||
-        splits != prego_int8_matmul_splits(M, K, N))
+        splits != prego_int8xint8_matmul_splits(M, K, N))
         return PREGO_BAD_ARGUMENT;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (splits == 0) {

@@ -3,7 +3,9 @@
 Port of prego_tpu/ops/decode_attention.py::decode_attention_bounded. The
 JAX package has three Pallas bodies for it (per-row, batch-folded, and
 flat head groups); they are TPU schedules of one function, and one
-split-K flash-decode kernel replaces all of them here.
+kernel replaces all of them here: a thread block cluster per (row, kv
+head) whose blocks split the positions and merge through distributed
+shared memory, one launch a call.
 
 Semantics (the kernel's, kept by the plain version too): for each row b
 and kv head g, the R query rows attend over positions t < valid[b]; masked
@@ -27,10 +29,7 @@ from prego_tpu_torch.ops.dense import bmm_f32
 KERNEL = CudaKernel(
     "decode_attention",
     "decode_attention.cu",
-    {
-        "prego_decode_attention": [c_ptr] * 7 + [c_int] * 5 + [c_ptr],
-        "prego_decode_attention_splits": [c_int],
-    },
+    {"prego_decode_attention": [c_ptr] * 5 + [c_int] * 5 + [c_ptr]},
 )
 
 ValidLen = Union[int, torch.Tensor]
@@ -72,7 +71,11 @@ def decode_attention(
     valid_len: ValidLen,
 ) -> torch.Tensor:
     """(B, KV, R, hd) attention output in q's dtype. CUDA: bf16 q and
-    cache, R <= 8, hd <= 256 and a multiple of 16."""
+    cache, R <= 8, hd <= 256 and a multiple of 16; one launch, and the
+    output the only allocation where ``valid_len`` is a (B,) int32 tensor
+    on the card. The kernel refuses (RuntimeError) a T whose R x ceil(T /
+    C) f32 scores do not fit a block's shared memory, C <= 8 blocks a
+    (row, kv head) (T past ~41,000 at R 8 and C 8)."""
     if not q.is_cuda:
         return decode_attention_reference(q, cache_k, cache_v, valid_len)
     B, KV, R, hd = q.shape
@@ -85,15 +88,11 @@ def decode_attention(
     valid = _valid_vec(valid_len, B, q.device)
     if tuple(valid.shape) != (B,):
         raise ValueError(f"decode_attention: valid_len must be scalar or ({B},)")
-    ns = KERNEL.lib().prego_decode_attention_splits(T)
     out = torch.empty_like(q)
-    part_acc = torch.empty(B, KV, ns, R, hd, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(B, KV, ns, R, 2, dtype=torch.float32, device=q.device)
     KERNEL.launches += 1
     KERNEL.call(
         "prego_decode_attention",
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), valid.data_ptr(), out.data_ptr(),
         B, KV, R, T, hd, stream_ptr(q.device),
     )
     return out

@@ -29,7 +29,7 @@ KERNEL_W8 = CudaKernel(
     "int8_matmul",
     "int8_matmul.cu",
     {
-        "prego_int8_matmul": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
+        "prego_int8_matmul": [c_ptr] * 4 + [c_int] * 4 + [c_ptr],
         "prego_int8_matmul_splits": [c_int] * 3,
     },
 )
@@ -39,7 +39,7 @@ KERNEL_W8A8 = CudaKernel(
     "int8_matmul.cu",
     {
         "prego_int8xint8_matmul": [c_ptr] * 6 + [c_int] * 4 + [c_ptr],
-        "prego_int8_matmul_splits": [c_int] * 3,
+        "prego_int8xint8_matmul_splits": [c_int] * 3,
     },
 )
 
@@ -86,7 +86,8 @@ def _check_weight(q: torch.Tensor, scale: torch.Tensor, K: int):
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ dequant(q (K, N) int8, scale (1, N) f32) -> (M, N) f32.
-    x is cast to bf16 first. CUDA: K a multiple of 8, N a multiple of 8."""
+    x is cast to bf16 first. CUDA: K a multiple of 8, N a multiple of 8; one
+    launch, and out the only allocation."""
     if not x.is_cuda:
         return int8_matmul_reference(x, q, scale)
     M, K = x.shape
@@ -95,13 +96,12 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     N = _check_weight(q, scale, K)
     if M < 1 or K % 8 or N % 8:
         raise ValueError(f"int8_matmul: M={M} K={K} N={N} (K and N multiples of 8)")
-    splits = KERNEL_W8.lib().prego_int8_matmul_splits(M, K, N)
+    splits = KERNEL_W8.lib().prego_int8_matmul_splits(M, K, N)  # 0: the tile path
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    part = torch.empty(splits, M, N, dtype=torch.float32, device=x.device)  # 0: tile path
     KERNEL_W8.launches += 1
     KERNEL_W8.call(
-        "prego_int8_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), part.data_ptr(),
-        out.data_ptr(), M, K, N, splits, stream_ptr(x.device),
+        "prego_int8_matmul", x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, splits, stream_ptr(x.device),
     )
     return out
 
@@ -119,7 +119,7 @@ def int8xint8_matmul(
     N = _check_weight(q, scale, K)
     if M < 1 or K % 16 or N % 8:
         raise ValueError(f"int8xint8_matmul: M={M} K={K} N={N} (K a multiple of 16, N of 8)")
-    splits = KERNEL_W8A8.lib().prego_int8_matmul_splits(M, K, N)
+    splits = KERNEL_W8A8.lib().prego_int8xint8_matmul_splits(M, K, N)
     out = torch.empty(M, N, dtype=torch.float32, device=xq.device)
     part = torch.empty(splits, M, N, dtype=torch.int32, device=xq.device)  # 0: tile path
     KERNEL_W8A8.launches += 1

@@ -85,13 +85,23 @@ def _attn_inputs(device, B, KV, R, T, hd, seed=0):
 
 
 @pytest.mark.parametrize("B,KV,R,T,hd", [(2, 2, 1, 128, 128), (3, 4, 2, 192, 64),
-                                         (8, 32, 1, 512, 128), (2, 8, 4, 512, 128)])
+                                         (8, 32, 1, 512, 128), (2, 8, 4, 512, 128),
+                                         (4, 4, 1, 4096, 128), (4, 2, 4, 200, 64),
+                                         (4, 2, 8, 256, 256), (4, 8, 8, 4096, 64),
+                                         (4, 3, 3, 100, 48), (4, 2, 1, 64, 16),
+                                         (32, 32, 1, 512, 128)])
 def test_decode_attention_kernel_matches_plain(cuda_device, B, KV, R, T, hd):
+    """K2 over one cluster of up to 8 blocks per (row, kv head): T 4096
+    (512 positions a block), T 200 and 100 (no multiple of 64 x C), bounds
+    0, 1, T - 1 and T among them, R 1 to 8, hd 16 to 256; B 32 x 32 kv
+    heads, where a (row, kv head) takes one block (clusters of one)."""
     q, k, v = _attn_inputs(cuda_device, B, KV, R, T, hd)
-    valid = torch.tensor(([0, T, 1, 77, 64, 65, 300, 511] * B)[:B], dtype=torch.int32,
+    valid = torch.tensor(([0, T, 1, T - 1, 77, 64, 65, 300] * B)[:B], dtype=torch.int32,
                          device=cuda_device).clamp(max=T)
+    before = da.KERNEL.launches
     out = da.decode_attention(q, k, v, valid)
     torch.cuda.synchronize()
+    assert da.KERNEL.launches == before + 1
     want = da.decode_attention_reference(q, k, v, valid)
     torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL)
     assert torch.all(out[valid == 0] == 0)
@@ -99,6 +109,47 @@ def test_decode_attention_kernel_matches_plain(cuda_device, B, KV, R, T, hd):
     torch.testing.assert_close(
         da.decode_attention(q, k, v, T // 2).float(),
         da.decode_attention_reference(q, k, v, T // 2).float(), **ATTN_TOL)
+
+
+def test_decode_attention_kernel_is_deterministic(cuda_device):
+    """The cluster merge sums its ranks in rank order: the same bits in two calls."""
+    q, k, v = _attn_inputs(cuda_device, 8, 8, 4, 1000, 128, seed=5)
+    valid = torch.tensor([1000, 999, 513, 512, 511, 200, 1, 0], dtype=torch.int32,
+                         device=cuda_device)
+    first = da.decode_attention(q, k, v, valid)
+    second = da.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_k2_and_k4_launch_once_and_allocate_only_their_output(cuda_device):
+    """One kernel and one allocation (the output) a call: K2, and K4's two
+    paths (the cluster GEMV at M 1, the wgmma tiles at M 64), ten calls each
+    under one profiler session."""
+    q, k, v = _attn_inputs(cuda_device, 8, 32, 1, 512, 128)
+    valid = torch.tensor([0, 512, 1, 77, 255, 256, 300, 511], dtype=torch.int32,
+                         device=cuda_device)
+    x1, w, s = _w8_inputs(cuda_device, 1, 4096, 12288)
+    x64, _, _ = _w8_inputs(cuda_device, 64, 4096, 12288)
+    fns = (lambda: da.decode_attention(q, k, v, valid), lambda: quant.int8_matmul(x1, w, s),
+           lambda: quant.int8_matmul(x64, w, s))
+    for fn in fns:  # built and warm
+        fn()
+    torch.cuda.synchronize()
+    for fn in fns:
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(10):
+            fn()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 10
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in fns:
+            for _ in range(10):
+                fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {n: names.count(n) for n in set(names)}
+    assert sorted(counts.values()) == [10, 10, 10], counts  # three kernels, nothing else
 
 
 def _ffn_inputs(device, M, D, F, seed=0):
@@ -129,6 +180,12 @@ def test_kernels_refuse_what_they_cannot_take(cuda_device):
     q, k, v = _attn_inputs(cuda_device, 1, 1, 1, 64, 64)
     with pytest.raises(ValueError):
         da.decode_attention(q.float(), k.float(), v.float(), 3)  # f32 cache
+    q, k, v = _attn_inputs(cuda_device, 1, 1, 9, 64, 64)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, v, 3)  # R above 8
+    q, k, v = _attn_inputs(cuda_device, 1, 1, 8, 48000, 16)
+    with pytest.raises(RuntimeError):
+        da.decode_attention(q, k, v, 3)  # 8 x 6000 f32 scores a block: past shared memory
     xg, h0, w, b = _gru_inputs(cuda_device, 2, 2, 16)
     with pytest.raises(ValueError):
         gru_cuda.gru_recurrence(xg, h0.to(torch.bfloat16), w, b)  # bf16 state
@@ -271,9 +328,14 @@ def _w8_inputs(device, M, K, N, seed=0):
     return x.to(device, torch.bfloat16), q.to(device), s.to(device)
 
 
-@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 300])
-@pytest.mark.parametrize("K,N", [(4096, 1000), (4096, 32000), (11008, 4096), (64, 24)])
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 64, 65, 128, 300, 512, 1000])
+@pytest.mark.parametrize("K,N", [(4096, 1000), (4096, 32000), (11008, 4096), (64, 24),
+                                 (4104, 1000)])
 def test_int8_matmul_kernel_matches_plain(cuda_device, M, K, N):
+    """K4: the cluster GEMV up to 8 rows; the wgmma tiles of 64 rows up to
+    64, of 128 or 256 above (256 at N 32000 from M 300 and at K 11008 at M
+    1000). N 24 and 1000 are no multiple of 16 (8-byte copies of q), K 4104
+    no multiple of the stage depth 64."""
     x, q, s = _w8_inputs(cuda_device, M, K, N)
     before = quant.KERNEL_W8.launches
     y = quant.int8_matmul(x, q, s)
@@ -302,6 +364,8 @@ def test_int8xint8_matmul_kernel_matches_plain(cuda_device, M, K, N):
 def test_int8_kernels_refuse_what_they_cannot_take(cuda_device):
     x, q, s = _w8_inputs(cuda_device, 4, 64, 24)
     with pytest.raises(ValueError):
+        quant.int8_matmul(x, q[:, :20].contiguous(), s[:, :20].contiguous())  # N 20
+    with pytest.raises(ValueError):
         quant.int8_matmul(x, q.float(), s)  # f32 weights
     with pytest.raises(ValueError):
         quant.int8_matmul(x, q.t(), s.t())  # a transposed (non-contiguous) weight
@@ -323,9 +387,9 @@ def test_int8_kernels_refuse_what_they_cannot_take(cuda_device):
         da8.decode_attention_q8(args[0], args[1], args[2][..., :32], *args[3:], 3)  # scales cut
 
 
-# K8: o is K2's output, computed the same way by the kernel's merge and by
-# K2's combine, so o differs from the plain version's as K2's does
-# (ATTN_TOL); the f32 projection carries that over sum_k o_k wo_k with wo ~
+# K8: o is the attention output with p rounded against a 64-position
+# split's max, as K2 rounds it against its block's, so o differs from the
+# plain version's as K2's does (ATTN_TOL); the f32 projection carries that over sum_k o_k wo_k with wo ~
 # N(0, 1 / (H hd)), i.e. about one such difference, and the residual
 # output rounds h + y to bf16 (|out| < 8: one ulp is 2^-5)
 WO_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -5)

@@ -61,6 +61,27 @@ def test_per_row_valid_matches_pallas(R):
     np.testing.assert_allclose(n(got), n(ref), **TOL)
 
 
+def test_long_cache_ragged_rows_match_pallas():
+    """T 1024 (the card's kernel splits it over a cluster of 8 blocks of 128
+    positions) with ragged per-row bounds: one short of a block, one past
+    it, and the whole cache."""
+    Tl, R = 1024, 2
+    rng = np.random.default_rng(31)
+    valid = np.array([127, 129, 1024], np.int32)
+    q = rng.normal(0, 1, (B, KV, R, HD)).astype(np.float32)
+    k = rng.normal(0, 1, (B, KV, Tl, HD)).astype(np.float32)
+    v = rng.normal(0, 1, (B, KV, Tl, HD)).astype(np.float32)
+    for b, vb in enumerate(valid):
+        k[b, :, vb:] = 1e4
+        v[b, :, vb:] = -1e4
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    kern = decode_attention_bounded(jq, jk, jv, jnp.asarray(valid), t_block=256, interpret=True)
+    ref = decode_attention_reference(jq, jk, jv, jnp.asarray(valid))
+    got = port.decode_attention(t(q), t(k), t(v), t(valid))
+    np.testing.assert_allclose(n(got), n(kern), **TOL)
+    np.testing.assert_allclose(n(got), n(ref), **TOL)
+
+
 def test_valid_zero_gives_zeros_like_the_kernel():
     """valid == 0: the Pallas kernel returns zeros (one fully masked block,
     l clamped); the port keeps that, not the reference's NaN softmax."""

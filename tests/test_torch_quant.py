@@ -88,8 +88,9 @@ def _matmul_inputs(M, K, N, seed):
 
 
 # M 300 passes the JAX kernel's 256-row block (padded there); N 1000 is no
-# multiple of a lane-aligned tile
-SHAPES = [(1, 128, 512), (8, 128, 512), (300, 64, 1000)]
+# multiple of a lane-aligned tile; M 520 is a prefill past two such blocks
+# (the card takes it on its wgmma tile path)
+SHAPES = [(1, 128, 512), (8, 128, 512), (300, 64, 1000), (520, 256, 384)]
 
 
 @pytest.mark.parametrize("M,K,N", SHAPES)

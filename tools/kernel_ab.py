@@ -1,0 +1,173 @@
+"""Time the port's K2 and K4 from one checkout on the card, under
+chip_smoke.py's yardsticks, to compare two designs within one run.
+
+  python3 tools/kernel_ab.py --root DIR [--tile-rows]
+
+DIR is the root of a checkout of the repo: this one, or an earlier commit
+unpacked with ``git archive`` into a git-ignored directory. Its
+prego_tpu_torch is imported, and its kernels are built under DIR. One
+process imports one checkout, so run the two in turns, A B B A:
+
+  mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
+  for r in build/parent . . build/parent; do python3 tools/kernel_ab.py --root $r; done
+
+Cases, with inputs made from a seed and rotated past the 50 MB L2 as a
+decode step reads them; each kernel and its library call timed on the host
+clock (back-to-back calls, CUDA events) and on the device (torch.profiler),
+with chip_smoke.py's helpers:
+  K2  B 8, T 512, hd 128, chip_smoke.py's bounds: KV 32, R 1 and KV 8, R 4
+      (SDPA with a boolean mask beside it)
+  K4  the five 7B projections at M 1 and 8; w13 and wo at M 512 and wqkv
+      at M 256 (torch.mm on bf16 weights beside it)
+``--tile-rows`` (this checkout only) also times K4's wgmma tile kernel
+with tiles of 128 and of 256 rows (tools/w8_tile_rows.cu) at the 7B
+shapes where w8::launch_tile takes 128.
+
+Prints one JSON object a case, each beside the card's nvidia-smi line.
+"""
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def load_smoke():
+    """chip_smoke.py's helpers, from this checkout whatever DIR is."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k2_cases(sm, dev):
+    from prego_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    valid = torch.tensor([0, 512, 1, 77, 255, 256, 300, 511], dtype=torch.int32, device=dev)
+    mask = (torch.arange(512, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+    for KV, R in ((32, 1), (8, 4)):
+        sets = sm.copies_past_l2(lambda: tuple(
+            torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16)
+            for shape in ((8, KV, R, 128), (8, KV, 512, 128), (8, KV, 512, 128))),
+            2 * 8 * KV * 512 * 128 * 2)
+        k2 = lambda q, k, v: da.decode_attention(q, k, v, valid)
+        lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask)
+        err = sm.max_err(k2(*sets[0]), da.decode_attention_reference(*sets[0], valid))
+        if not err <= sm.TOL["decode_attention"]:
+            raise AssertionError(f"K2 KV {KV} R {R}: max_abs_err {err}")
+        yield dict(kernel="K2", shape=f"B 8 KV {KV} R {R} T 512", max_abs_err=err,
+                   ms=sm.time_ms_cycle(k2, sets, 50),
+                   device_ms=sm.device_ms_cycle(k2, sets, what="K2"),
+                   library_ms=sm.time_ms_cycle(lib, sets, 50),
+                   library_device_ms=sm.device_ms_cycle(lib, sets, what="SDPA"))
+
+
+def k4_inputs(gen, dev, M, K, N):
+    from prego_tpu_torch.ops import quant
+
+    def make():
+        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+        q, s = quant.quantize_weight(torch.randn(K, N, device=dev, generator=gen) * K ** -0.5)
+        return x, q, s
+    return make
+
+
+def k4_cases(sm, dev):
+    from prego_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    mm = lambda a, w: torch.mm(a, w, out_dtype=torch.float32)
+    shapes = [(M, name, K, N) for M in (1, 8) for name, (K, N) in sm.PROJ_7B.items()]
+    shapes += [(512, "w13", *sm.PROJ_7B["w13"]), (256, "wqkv", *sm.PROJ_7B["wqkv"]),
+               (512, "wo", *sm.PROJ_7B["wo"])]
+    for M, name, K, N in shapes:
+        sets = sm.copies_past_l2(k4_inputs(gen, dev, M, K, N), K * N)
+        wd = [(x, (q.float() * s).to(torch.bfloat16)) for x, q, s in sets]
+        err = sm.max_err(quant.int8_matmul(*sets[0]), quant.int8_matmul_reference(*sets[0]))
+        if not err <= sm.TOL["int8_matmul"]:
+            raise AssertionError(f"K4 {name} M {M}: max_abs_err {err}")
+        iters = 20 if M > 8 else 50
+        yield dict(kernel="K4", shape=f"{name} M {M}", max_abs_err=err,
+                   ms=sm.time_ms_cycle(quant.int8_matmul, sets, iters),
+                   device_ms=sm.device_ms_cycle(quant.int8_matmul, sets, what="K4"),
+                   library_ms=sm.time_ms_cycle(mm, wd, iters),
+                   library_device_ms=sm.device_ms_cycle(mm, wd, what="torch.mm"))
+
+
+def tile_rows_cases(sm, dev):
+    """K4's tile kernel with tiles of 128 (2 warpgroups) and 256 rows (4)
+    where w8::launch_tile takes 128."""
+    from prego_tpu_torch.ops import quant
+    from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, stream_ptr
+
+    kernel = CudaKernel("w8_tile_rows", str(REPO / "tools" / "w8_tile_rows.cu"),
+                        {"prego_w8_tile_rows": [c_ptr] * 4 + [c_int] * 4 + [c_ptr]})
+
+    def tiles(wg):
+        def run(x, q, s):
+            M, K = x.shape
+            N = q.shape[1]
+            out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+            kernel.call("prego_w8_tile_rows", x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                        out.data_ptr(), M, K, N, wg, stream_ptr(x.device))
+            return out
+        return run
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for M, name in ((128, "wo"), (256, "wqkv"), (512, "wo"), (1024, "w2")):
+        K, N = sm.PROJ_7B[name]
+        sets = sm.copies_past_l2(k4_inputs(gen, dev, M, K, N), K * N)
+        ref = quant.int8_matmul_reference(*sets[0])
+        case = dict(kernel="K4 tile rows", shape=f"{name} M {M}")
+        for wg in (2, 4):
+            err = sm.max_err(tiles(wg)(*sets[0]), ref)
+            if not err <= sm.TOL["int8_matmul"]:
+                raise AssertionError(f"K4 tiles of {64 * wg} rows at {name} M {M}: {err}")
+            case[f"rows_{64 * wg}"] = dict(
+                max_abs_err=err, ms=sm.time_ms_cycle(tiles(wg), sets, 20),
+                device_ms=sm.device_ms_cycle(tiles(wg), sets, what=f"{64 * wg} rows"))
+        yield case
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, required=True, help="checkout whose port is timed")
+    ap.add_argument("--tile-rows", action="store_true",
+                    help="also time K4's tiles of 128 and 256 rows (this checkout only)")
+    args = ap.parse_args()
+    root = args.root.resolve()
+    if args.tile_rows and root != REPO:
+        ap.error("--tile-rows times this checkout's tile kernel: --root must be this checkout")
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    import prego_tpu_torch
+
+    if Path(prego_tpu_torch.__file__).resolve().parents[1] != root:
+        raise AssertionError(f"prego_tpu_torch came from {prego_tpu_torch.__file__}, not {root}")
+    sm = load_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = sm.nvidia_smi_line()
+    cases = [*k2_cases(sm, dev), *k4_cases(sm, dev)]
+    if args.tile_rows:
+        cases += list(tile_rows_cases(sm, dev))
+    for case in cases:
+        print(json.dumps(dict(root=str(args.root), card=card, **case)), flush=True)
+    print(json.dumps(dict(root=str(args.root), device_ms_sessions=sm.device_ms_report())))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
