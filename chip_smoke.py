@@ -9,9 +9,10 @@
    for the quantized kernels), timing both with CUDA events, beside its
    roofline bound and, where one PyTorch call computes the same function,
    that call's time; the decode kernels' inputs cycle through copies that
-   pass the L2 cache, and K2's and K4's cases also read each call's device
-   time from torch.profiler (K4 at decode M 1 and 8, at M 64, 512 and 2048
-   on the 7B w13, M 256 on wqkv and M 512 on wo). The cuDNN GRU layer is
+   pass the L2 cache, and K2's, K3's, K4's and K5's cases also read each
+   call's device time, and their library calls', from torch.profiler (K4
+   and K5 at decode M 1 and 8, at M 64, 512 and 2048 on the 7B w13, M 256
+   on wqkv and M 512 on wo). The cuDNN GRU layer is
    timed beside the trainable GRU layer as a yardstick, the bf16 decode
    fusions (K8, K8u, K7) and the int8 ones (K9 in both modes at the 7B
    wqkv, wo and lm-head shapes, K7q at the 7B FFN) beside the unfused
@@ -125,8 +126,8 @@ TOL = {
     # sums, far inside 2^-12
     "int8_matmul": 2.0 ** -12,
     # exact int32 sums rounded once to f32 and scaled in the same order on
-    # both sides: equal, allowed one ulp (2^-21 at |y| < 8)
-    "int8xint8_matmul": 2.0 ** -20,
+    # both sides: equal
+    "int8xint8_matmul": 0.0,
     # K8, both bodies, and K8u: o is the bf16 attention output, its p
     # rounded against a split's max as K2's (2^-5 above), carried into y = o.wo with wo ~
     # N(0, 1 / (H hd)), about one such difference; with the residual, the
@@ -470,20 +471,28 @@ def check_quant_kernels(dev):
         ref = da8.decode_attention_q8_reference(*sets[0], valid)
         if not torch.all(out[0] == 0):
             raise AssertionError("decode_attention_q8: valid_len 0 must give zeros")
+        k3 = lambda *a: da8.decode_attention_q8(*a, valid)
+        lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask)
+        k2 = lambda q, k, v: da.decode_attention(q, k, v, valid)
         case = dict(
             R=R, KV=KV, max_abs_err=max_err(out, ref),
-            ms=time_ms_cycle(lambda *a: da8.decode_attention_q8(*a, valid), sets, 50),
+            ms=time_ms_cycle(k3, sets, 50),
+            device_ms=device_ms_cycle(k3, sets, what=f"K3 R {R}"),
             plain_ms=time_ms_cycle(lambda *a: da8.decode_attention_q8_reference(*a, valid),
                                    sets, 20),
             # int8 K and V below the bounds and their f32 scales, read once
             **bound(2 * 2 * used * KV * R * 128,
                     2 * used * KV * (128 + 4) + nbytes(sets[0][0], valid, out)),
-            library_ms=time_ms_cycle(lambda q, k, v: sdpa(q, k, v, attn_mask=mask), deq, 50),
-            k2_bf16_ms=time_ms_cycle(lambda q, k, v: da.decode_attention(q, k, v, valid), deq, 50),
+            library_ms=time_ms_cycle(lib, deq, 50),
+            library_device_ms=device_ms_cycle(lib, deq, what=f"SDPA on the int8 cache R {R}"),
+            k2_bf16_ms=time_ms_cycle(k2, deq, 50),
+            k2_bf16_device_ms=device_ms_cycle(k2, deq, what=f"K2 on the bf16 cache R {R}"),
         )
         cases["decode_attention_q8"].append(case)
         log_case("decode_attention_q8", f"B=8 KV={KV} R={R} T=512", case)
-        log(f"  K2 on the dequantized bf16 cache, same bounds: {case['k2_bf16_ms']:.4f} ms")
+        log(f"  device ms: K3 {fmt_ms(case['device_ms'])}, SDPA "
+            f"{fmt_ms(case['library_device_ms'])}; K2 on the dequantized bf16 cache, same "
+            f"bounds: {case['k2_bf16_ms']:.4f} ms, device {fmt_ms(case['k2_bf16_device_ms'])}")
 
     # K4 and K5 at the 7B projections, decode M 1 and 8, and prefill
     # shapes: w13 at M 64, 512 and 2048 and wqkv at M 256 (K4's tiles of 64
@@ -517,6 +526,7 @@ def check_quant_kernels(dev):
             library_device_ms=device_ms_cycle(mm, wd, what=f"torch.mm {name} M {M}"),
         )
         cases["int8_matmul"].append(case)
+        case_k4 = case
         log_case("int8_matmul", f"{name} M={M} K={K} N={N}", case)
         log(f"  device ms: K4 {fmt_ms(case['device_ms'])}, torch.mm "
             f"{fmt_ms(case['library_device_ms'])}; host-clock factor of torch.mm "
@@ -527,27 +537,32 @@ def check_quant_kernels(dev):
         pad = max(0, 32 - M) if M <= 16 else 0
         lib = [(torch.cat([a[3], a[3].new_zeros(pad, K)]), torch.cat([a[4], a[4].new_ones(pad, 1)]),
                 a[1], a[2]) for a in sets]
+        scaled = lambda a, sa, w, sw: torch._int_mm(a, w).float() * sa * sw[0]
         try:
-            lib_ms = time_ms_cycle(lambda a, sa, w, sw: torch._int_mm(a, w).float() * sa * sw[0],
-                                   lib, iters)
+            lib_ms = time_ms_cycle(scaled, lib, iters)
+            lib_device_ms = device_ms_cycle(scaled, lib, what=f"torch._int_mm {name} M {M}")
         except RuntimeError as e:  # a yardstick only: the port never calls it
             log(f"  torch._int_mm refused {name} M={M}: {str(e).splitlines()[0]}")
-            lib_ms = None
+            lib_ms = lib_device_ms = None
         case = dict(
             M=M, proj=name, rows_padded_for_library=pad,
             max_abs_err=max_err(y8, quant.int8xint8_matmul_reference(xq, xs, q, s)),
             ms=time_ms_cycle(quant.int8xint8_matmul, w8a8, iters),
+            device_ms=device_ms_cycle(quant.int8xint8_matmul, w8a8, what=f"K5 {name} M {M}"),
             plain_ms=time_ms_cycle(quant.int8xint8_matmul_reference, w8a8, max(iters // 5, 3)),
             **bound(2 * M * K * N, nbytes(xq, xs, q, s, y8), PEAK_INT8_OPS),
-            library_ms=lib_ms,
+            library_ms=lib_ms, library_device_ms=lib_device_ms,
         )
         cases["int8xint8_matmul"].append(case)
         log_case("int8xint8_matmul", f"{name} M={M} K={K} N={N}", case,
                  f"; library rows padded to {M + pad}" if pad else "")
+        log(f"  device ms: K5 {fmt_ms(case['device_ms'])}, torch._int_mm and the scales "
+            f"{fmt_ms(lib_device_ms)}; K4 on the same shape {case_k4['ms']:.4f} ms, device "
+            f"{fmt_ms(case_k4['device_ms'])}")
 
     rows["decode_attention_q8"] = {
         k: v for k, v in cases["decode_attention_q8"][0].items()
-        if k not in ("R", "KV", "k2_bf16_ms")}
+        if k not in ("R", "KV", "k2_bf16_ms", "k2_bf16_device_ms")}
     rows["decode_attention_q8"]["max_abs_err"] = max(
         c["max_abs_err"] for c in cases["decode_attention_q8"])
     # K4 and K5's rows: one decode step's projections of a layer and the
@@ -562,10 +577,9 @@ def check_quant_kernels(dev):
             bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step) else "operations",
             library_ms=None if None in lib else sum(lib),
         )
-        if "device_ms" in step[0]:  # K4's cases read the device time too
-            for key in ("device_ms", "library_device_ms"):
-                vals = [c[key] for c in step]
-                rows[name][key] = None if None in vals else sum(vals)
+        for key in ("device_ms", "library_device_ms"):
+            vals = [c[key] for c in step]
+            rows[name][key] = None if None in vals else sum(vals)
     for name, row in rows.items():
         if not row["max_abs_err"] <= TOL[name]:
             raise AssertionError(f"{name}: max_abs_err {row['max_abs_err']} > {TOL[name]}")

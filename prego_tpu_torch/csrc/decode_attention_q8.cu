@@ -42,6 +42,12 @@
 // against the split's own max, not the row's (the plain version uses the
 // row's): each pv moves by at most 2^-9 of itself between the two. Pass 2
 // merges the live splits with the log-sum-exp rule, as in K8. No atomics.
+// The wrapper keeps the scratch as a persistent workspace, so a call
+// allocates only its output. One-launch designs (the splits merged by the
+// last to arrive through a ticket in the same launch, 64 to 512 positions
+// a block, loads by register, cp.async or bulk copy) took 1.18-1.6x this
+// design's device time at the 7B shape with ragged bounds, and were not
+// kept (PERF.md, section 6, K3's one-launch designs).
 // K3m (template flag kMxu) keeps the layout: q8 . k with __dp4a on the
 // 16-byte key runs; for PV, a lane reads 4 consecutive value rows of its
 // 16 channels, transposes the 4 x 4 byte blocks with byte permutes so that

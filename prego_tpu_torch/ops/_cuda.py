@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -110,6 +110,28 @@ class CudaKernel:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class Workspace:
+    """Buffers of ``dtype`` that a kernel keeps between calls, one set per
+    (device, stream): the calls on a stream use them in stream order. A set
+    is allocated anew (zeroed where ``zero``; its kernel then leaves it
+    zero) only when a call needs more elements than it holds."""
+
+    def __init__(self, dtype: torch.dtype, zero: bool = False):
+        self.dtype = dtype
+        self.zero = zero
+        self.held: Dict[Tuple[int, int], Tuple[List[torch.Tensor], Tuple[int, ...]]] = {}
+
+    def get(self, device: torch.device, stream: int, *sizes: int) -> List[torch.Tensor]:
+        key = (device.index, stream)
+        bufs, held = self.held.get(key, (None, ()))
+        if bufs is None or any(n > h for n, h in zip(sizes, held)):
+            held = tuple(max(n, h) for n, h in zip(sizes, held or (0,) * len(sizes)))
+            new = torch.zeros if self.zero else torch.empty
+            bufs = [new(n, dtype=self.dtype, device=device) for n in held]
+            self.held[key] = (bufs, held)
+        return bufs
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:

@@ -31,7 +31,9 @@ from __future__ import annotations
 
 import torch
 
-from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, check_cuda_tensor, stream_ptr
+from prego_tpu_torch.ops._cuda import (
+    CudaKernel, Workspace, c_int, c_ptr, check_cuda_tensor, stream_ptr,
+)
 from prego_tpu_torch.ops.decode_attention import ValidLen, _valid_vec
 from prego_tpu_torch.ops.dense import bmm_f32
 
@@ -53,6 +55,10 @@ KERNEL_MXU = CudaKernel(
     },
 )
 SPLIT = 64  # cache positions of a pass-1 block (csrc/decode_attention_q8.cu)
+# the kernels' scratch, partial sums (B, KV, NS, R, hd) and their (m, l):
+# pass 2 reads only what pass 1 wrote in the same call, so it is never
+# cleared
+SCRATCH = Workspace(torch.float32)
 
 
 def decode_attention_q8_reference(
@@ -141,7 +147,9 @@ def decode_attention_q8(
     int8_mxu: bool = False,
 ) -> torch.Tensor:
     """(B, KV, R, hd) attention output in q's dtype; ``int8_mxu``: K3m.
-    CUDA: bf16 q, R <= 8, hd <= 256 and a multiple of 16."""
+    CUDA: bf16 q, R <= 8, hd <= 256 and a multiple of 16; two launches, and
+    out the only allocation once the scratch is as large as the call needs
+    (calls on one stream share it in stream order)."""
     if not q.is_cuda:
         plain = decode_attention_q8_mxu_reference if int8_mxu else decode_attention_q8_reference
         return plain(q, kq, ks, vq, vs, valid_len)
@@ -158,15 +166,17 @@ def decode_attention_q8(
     if tuple(valid.shape) != (B,):
         raise ValueError(f"decode_attention_q8: valid_len must be scalar or ({B},)")
     ns = KERNEL.lib().prego_decode_attention_q8_splits(T)
+    stream = stream_ptr(q.device)
     out = torch.empty_like(q)
-    part_acc = torch.empty(B, KV, ns, R, hd, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(B, KV, ns, R, 2, dtype=torch.float32, device=q.device)
+    rows = B * KV * ns * R
+    part_acc, part_ml = SCRATCH.get(q.device, stream, rows * hd, rows * 2)
     kernel = KERNEL_MXU if int8_mxu else KERNEL
     kernel.launches += 1
     kernel.call(
         "prego_decode_attention_q8_mxu" if int8_mxu else "prego_decode_attention_q8",
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
         valid.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        B, KV, R, T, hd, stream_ptr(q.device),
+        B, KV, R, T, hd, stream,
     )
     return out
+

@@ -22,7 +22,9 @@ from typing import Tuple
 
 import torch
 
-from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, check_cuda_tensor, stream_ptr
+from prego_tpu_torch.ops._cuda import (
+    CudaKernel, Workspace, c_int, c_ptr, check_cuda_tensor, stream_ptr,
+)
 from prego_tpu_torch.ops.dense import mm_f32
 
 KERNEL_W8 = CudaKernel(
@@ -38,10 +40,13 @@ KERNEL_W8A8 = CudaKernel(
     "int8xint8_matmul",
     "int8_matmul.cu",
     {
-        "prego_int8xint8_matmul": [c_ptr] * 6 + [c_int] * 4 + [c_ptr],
+        "prego_int8xint8_matmul": [c_ptr] * 7 + [c_int] * 4 + [c_ptr],
         "prego_int8xint8_matmul_splits": [c_int] * 3,
     },
 )
+GEMV_TILE_N = 128  # output columns of a streaming block (csrc/w8_matmul.cuh kTileN)
+# K5's streaming path: int32 sums (M x N) and a ticket per column tile
+W8A8_WORKSPACE = Workspace(torch.int32, zero=True)
 
 
 def _quantize(xf: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,7 +115,10 @@ def int8xint8_matmul(
     xq: torch.Tensor, x_scale: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
 ) -> torch.Tensor:
     """dequant(xq (M, K) int8, x_scale (M, 1)) @ dequant(q, scale) ->
-    (M, N) f32, int32 accumulation. CUDA: K a multiple of 16, N of 8."""
+    (M, N) f32, int32 accumulation. CUDA: K a multiple of 16, N of 8; one
+    launch, and out the only allocation once the streaming workspace (M <=
+    8) is as large as the call needs. Calls on one stream share that
+    workspace in stream order."""
     if not xq.is_cuda:
         return int8xint8_matmul_reference(xq, x_scale, q, scale)
     M, K = xq.shape
@@ -119,13 +127,16 @@ def int8xint8_matmul(
     N = _check_weight(q, scale, K)
     if M < 1 or K % 16 or N % 8:
         raise ValueError(f"int8xint8_matmul: M={M} K={K} N={N} (K a multiple of 16, N of 8)")
-    splits = KERNEL_W8A8.lib().prego_int8xint8_matmul_splits(M, K, N)
+    splits = KERNEL_W8A8.lib().prego_int8xint8_matmul_splits(M, K, N)  # 0: the tile path
+    stream = stream_ptr(xq.device)
+    ws = tickets = None
+    if splits:
+        ws, tickets = W8A8_WORKSPACE.get(xq.device, stream, M * N, -(-N // GEMV_TILE_N))
     out = torch.empty(M, N, dtype=torch.float32, device=xq.device)
-    part = torch.empty(splits, M, N, dtype=torch.int32, device=xq.device)  # 0: tile path
     KERNEL_W8A8.launches += 1
     KERNEL_W8A8.call(
         "prego_int8xint8_matmul", xq.data_ptr(), x_scale.data_ptr(), q.data_ptr(),
-        scale.data_ptr(), part.data_ptr(), out.data_ptr(), M, K, N, splits,
-        stream_ptr(xq.device),
+        scale.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(), M, K, N, splits, stream,
     )
     return out

@@ -10,6 +10,9 @@ tests.) Inputs are made with numpy from a seed and compared in bf16, the
 kernels' working type.
 """
 
+import ctypes
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -150,6 +153,55 @@ def test_k2_and_k4_launch_once_and_allocate_only_their_output(cuda_device):
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     counts = {n: names.count(n) for n in set(names)}
     assert sorted(counts.values()) == [10, 10, 10], counts  # three kernels, nothing else
+
+
+def _graph_node_types(fn, device):
+    """The node types of a CUDA graph that captures one call of ``fn`` (0 a
+    kernel, 2 a memset, ...): an exact count of what the call launches. The
+    call runs once on the capture stream first, so that its workspaces for
+    that stream exist before the capture."""
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+def test_k3_and_k5_allocate_only_their_output(cuda_device):
+    """One allocation (the output) a call once the workspaces are as large
+    as the calls need, and exactly their own kernels, nothing else, counted
+    as the nodes of a captured call: K3 at the 7B shape with chip_smoke.py's
+    bounds (its two passes), K5's streaming path at M 1 and 8 and its wgmma
+    tiles at M 64 (one kernel each)."""
+    args = _attn_q8_inputs(cuda_device, 8, 32, 1, 512, 128)
+    valid = torch.tensor([0, 512, 1, 77, 255, 256, 300, 511], dtype=torch.int32,
+                         device=cuda_device)
+    w8a8 = [_w8a8_inputs(cuda_device, M, 4096, 12288) for M in (1, 8, 64)]
+    fns = ((lambda: da8.decode_attention_q8(*args, valid), 2),
+           *((lambda a=a: quant.int8xint8_matmul(*a), 1) for a in w8a8))
+    for fn, _ in fns:  # built, warm, and their workspaces made
+        fn()
+    torch.cuda.synchronize()
+    for fn, kernels in fns:
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(10):
+            fn()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 10
+        assert _graph_node_types(fn, cuda_device) == [0] * kernels
 
 
 def _ffn_inputs(device, M, D, F, seed=0):
@@ -321,6 +373,28 @@ def test_decode_attention_q8_kernel_matches_plain(cuda_device, B, KV, R, T, hd):
     assert torch.equal(da8.decode_attention_q8(*args, valid), out)  # the same bits again
 
 
+# (B, KV, T, R, hd): every R and hd at 4 x 2 kv heads, and R 1, 4, 8 at the
+# 7B shape's 8 x 32
+K3_BLOCK_CASES = ([(4, 2, 640, R, hd) for R in range(1, 9) for hd in (64, 128, 256)]
+                  + [(8, 32, 512, R, hd) for R in (1, 4, 8) for hd in (64, 128, 256)])
+
+
+@pytest.mark.parametrize("B,KV,T,R,hd", K3_BLOCK_CASES)
+def test_decode_attention_q8_kernel_at_block_bounds(cuda_device, B, KV, T, R, hd):
+    """K3 with per-row bounds at 0, 1, one past a split's 64 positions, T
+    and between, two runs equal in their bits, its scratch reused."""
+    P = da8.SPLIT
+    args = _attn_q8_inputs(cuda_device, B, KV, R, T, hd, seed=R + hd)
+    valid = torch.tensor([0, 1, P + 1, T, P, 2 * P + 1, T - 1, P - 1][:B],
+                         dtype=torch.int32, device=cuda_device)
+    out = da8.decode_attention_q8(*args, valid)
+    torch.cuda.synchronize()
+    want = da8.decode_attention_q8_reference(*args, valid)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_Q8_TOL)
+    assert torch.all(out[0] == 0)
+    assert torch.equal(da8.decode_attention_q8(*args, valid), out)  # the same bits again
+
+
 def _w8_inputs(device, M, K, N, seed=0):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(np.float32))
@@ -346,19 +420,53 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, M, K, N):
     assert torch.equal(quant.int8_matmul(x, q, s), y)  # the same bits again
 
 
-@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 300])
-@pytest.mark.parametrize("K,N", [(4096, 1000), (4096, 32000), (11008, 4096), (64, 24)])
+@functools.lru_cache(maxsize=8)
+def _w8_weight(K, N, seed):
+    """q (K, N) int8 and s (1, N) on the CPU, made once per shape."""
+    rng = np.random.default_rng(seed)
+    return quant.quantize_weight(torch.from_numpy(rng.normal(0, 0.02, (K, N)).astype(np.float32)))
+
+
+def _w8a8_inputs(device, M, K, N, seed=1):
+    q, s = _w8_weight(K, N, seed)
+    x = np.random.default_rng(seed + M).normal(0, 1, (M, K)).astype(np.float32)
+    xq, xs = quant.quantize_activations(torch.from_numpy(x))
+    return xq.to(device), xs.to(device), q.to(device), s.to(device)
+
+
+# the 7B projections (wqkv, wo, w13, w2, lm-head), N 1000 (no multiple of
+# 16: q by cp.async on the tile path) and a small odd shape
+W8A8_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000),
+               (4096, 1000), (64, 24)]
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 9, 63, 64, 65, 300, 512])
+@pytest.mark.parametrize("K,N", W8A8_SHAPES)
 def test_int8xint8_matmul_kernel_matches_plain(cuda_device, M, K, N):
     """K5 is exact: int32 sums on both sides, rounded once to f32 and
-    scaled in the same order, so kernel and plain agree bit for bit."""
-    x, q, s = _w8_inputs(cuda_device, M, K, N, seed=1)
-    xq, xs = quant.quantize_activations(x)
+    scaled in the same order, so kernel and plain agree bit for bit: the
+    streaming path up to 8 rows, the wgmma tiles of 64 rows up to 64 and of
+    128 or 256 above."""
+    xq, xs, q, s = _w8a8_inputs(cuda_device, M, K, N)
     before = quant.KERNEL_W8A8.launches
     y = quant.int8xint8_matmul(xq, xs, q, s)
     torch.cuda.synchronize()
     assert quant.KERNEL_W8A8.launches == before + 1
     assert torch.equal(y, quant.int8xint8_matmul_reference(xq, xs, q, s))
-    assert torch.equal(quant.int8xint8_matmul(xq, xs, q, s), y)
+    assert torch.equal(quant.int8xint8_matmul(xq, xs, q, s), y)  # the same bits again
+
+
+def test_int8xint8_matmul_workspace_is_left_zero(cuda_device):
+    """The streaming path's int32 sums and tickets are zero after calls of
+    different shapes in a row, so any later call may start from them."""
+    for M, (K, N) in ((1, W8A8_SHAPES[0]), (8, W8A8_SHAPES[3]), (3, W8A8_SHAPES[4]),
+                      (8, W8A8_SHAPES[0]), (5, W8A8_SHAPES[5])):
+        args = _w8a8_inputs(cuda_device, M, K, N)
+        assert torch.equal(quant.int8xint8_matmul(*args), quant.int8xint8_matmul_reference(*args))
+    torch.cuda.synchronize()
+    ws, tickets = quant.W8A8_WORKSPACE.get(
+        cuda_device, torch.cuda.current_stream().cuda_stream, 8 * 12288, 1)
+    assert ws.numel() >= 8 * 12288 and not torch.any(ws) and not torch.any(tickets)
 
 
 def test_int8_kernels_refuse_what_they_cannot_take(cuda_device):

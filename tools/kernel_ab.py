@@ -1,7 +1,7 @@
-"""Time the port's K2 and K4 from one checkout on the card, under
+"""Time the port's K2, K4, K5 and K3 from one checkout on the card, under
 chip_smoke.py's yardsticks, to compare two designs within one run.
 
-  python3 tools/kernel_ab.py --root DIR [--tile-rows]
+  python3 tools/kernel_ab.py --root DIR [--kernels K2,K4,K5,K3] [--tile-rows] [--k5-cluster]
 
 DIR is the root of a checkout of the repo: this one, or an earlier commit
 unpacked with ``git archive`` into a git-ignored directory. Its
@@ -19,9 +19,17 @@ with chip_smoke.py's helpers:
       (SDPA with a boolean mask beside it)
   K4  the five 7B projections at M 1 and 8; w13 and wo at M 512 and wqkv
       at M 256 (torch.mm on bf16 weights beside it)
+  K5  the five 7B projections at M 1 and 8; w13 at M 64, 512 and 2048,
+      wqkv at M 256 and wo at M 512 (torch._int_mm alone, and with the two
+      scales, beside it; rows padded to 32 below 17)
+  K3  B 8, T 512, hd 128, chip_smoke.py's bounds: KV 32, R 1 and KV 8, R 4
+      over an int8 cache (SDPA on the dequantized bf16 cache and K2 on that
+      bf16 cache beside it; K3's device time also by kernel)
 ``--tile-rows`` (this checkout only) also times K4's wgmma tile kernel
 with tiles of 128 and of 256 rows (tools/w8_tile_rows.cu) at the 7B
-shapes where w8::launch_tile takes 128.
+shapes where w8::launch_tile takes 128. ``--k5-cluster`` (this checkout
+only) also times K5's streaming GEMV with its splits summed in a thread
+block cluster (tools/w8a8_gemv_cluster.cu) at the decode shapes.
 
 Prints one JSON object a case, each beside the card's nvidia-smi line.
 """
@@ -103,6 +111,122 @@ def k4_cases(sm, dev):
                    library_device_ms=sm.device_ms_cycle(mm, wd, what="torch.mm"))
 
 
+def k5_cases(sm, dev, cluster=False):
+    from prego_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    shapes = [(M, name, *sm.PROJ_7B[name]) for M in (1, 8) for name in sm.PROJ_7B]
+    shapes += [(M, "w13", *sm.PROJ_7B["w13"]) for M in (64, 512, 2048)]
+    shapes += [(256, "wqkv", *sm.PROJ_7B["wqkv"]), (512, "wo", *sm.PROJ_7B["wo"])]
+    gemv_cluster = k5_cluster_kernel() if cluster else None
+    for M, name, K, N in shapes:
+        def make():
+            x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            q, s = quant.quantize_weight(torch.randn(K, N, device=dev, generator=gen) * K ** -0.5)
+            xq, xs = quant.quantize_activations(x)
+            return xq, xs, q, s
+        sets = sm.copies_past_l2(make, K * N)
+        y = quant.int8xint8_matmul(*sets[0])
+        err = sm.max_err(y, quant.int8xint8_matmul_reference(*sets[0]))
+        if not err <= sm.TOL["int8xint8_matmul"]:
+            raise AssertionError(f"K5 {name} M {M}: max_abs_err {err}")
+        pad = max(0, 32 - M) if M <= 16 else 0  # torch._int_mm takes more than 16 rows
+        lib = [(torch.cat([a, a.new_zeros(pad, K)]), torch.cat([sa, sa.new_ones(pad, 1)]), w, sw)
+               for a, sa, w, sw in sets]
+        int_mm = lambda a, sa, w, sw: torch._int_mm(a, w)
+        scaled = lambda a, sa, w, sw: torch._int_mm(a, w).float() * sa * sw[0]
+        iters = 20 if M > 8 else 50
+        case = dict(kernel="K5", shape=f"{name} M {M}", max_abs_err=err,
+                    ms=sm.time_ms_cycle(quant.int8xint8_matmul, sets, iters),
+                    device_ms=sm.device_ms_cycle(quant.int8xint8_matmul, sets, what="K5"),
+                    library_rows=M + pad,
+                    int_mm_ms=sm.time_ms_cycle(int_mm, lib, iters),
+                    int_mm_device_ms=sm.device_ms_cycle(int_mm, lib, what="torch._int_mm"),
+                    library_ms=sm.time_ms_cycle(scaled, lib, iters),
+                    library_device_ms=sm.device_ms_cycle(scaled, lib, what="_int_mm + scales"))
+        if gemv_cluster is not None and M <= 8:
+            if not torch.equal(gemv_cluster(*sets[0]), y):
+                raise AssertionError(f"K5's cluster GEMV at {name} M {M} differs from K5")
+            case["cluster_gemv"] = dict(
+                ms=sm.time_ms_cycle(gemv_cluster, sets, iters),
+                device_ms=sm.device_ms_cycle(gemv_cluster, sets, what="K5 cluster GEMV"))
+        yield case
+
+
+def k5_cluster_kernel():
+    """K5's streaming GEMV with a cluster reduce (tools/w8a8_gemv_cluster.cu)."""
+    from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, stream_ptr
+
+    kernel = CudaKernel("w8a8_gemv_cluster", str(REPO / "tools" / "w8a8_gemv_cluster.cu"),
+                        {"prego_w8a8_gemv_cluster": [c_ptr] * 5 + [c_int] * 3 + [c_ptr]})
+
+    def run(xq, xs, q, s):
+        M, K = xq.shape
+        N = q.shape[1]
+        out = torch.empty(M, N, dtype=torch.float32, device=xq.device)
+        kernel.call("prego_w8a8_gemv_cluster", xq.data_ptr(), xs.data_ptr(), q.data_ptr(),
+                    s.data_ptr(), out.data_ptr(), M, K, N, stream_ptr(xq.device))
+        return out
+    return run
+
+
+def device_ms_by_kernel(fn, arg_sets, iters=20):
+    """Each kernel's own device time a call of ``fn`` over ``arg_sets`` in
+    turn, by kernel name, from one torch.profiler session."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name[:80]
+            span = (e.time_range.end - e.time_range.start) / 1e3 / iters
+            spans[name] = spans.get(name, 0.0) + span
+    return spans
+
+
+def k3_cases(sm, dev):
+    from prego_tpu_torch.models.llama.model import _kv_dequant, _kv_quantize
+    from prego_tpu_torch.ops import decode_attention as da
+    from prego_tpu_torch.ops import decode_attention_q8 as da8
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    valid = torch.tensor([0, 512, 1, 77, 255, 256, 300, 511], dtype=torch.int32, device=dev)
+    mask = (torch.arange(512, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+
+    for KV, R in ((32, 1), (8, 4)):
+        def make():
+            q = torch.randn(8, KV, R, 128, device=dev, generator=gen).to(bf16)
+            kq, ks = _kv_quantize(torch.randn(8, KV, 512, 128, device=dev, generator=gen))
+            vq, vs = _kv_quantize(torch.randn(8, KV, 512, 128, device=dev, generator=gen))
+            return q, kq, ks, vq, vs
+        sets = sm.copies_past_l2(make, 2 * 8 * KV * 512 * 132)
+        deq = [(q, _kv_dequant({"q": kq, "s": ks}, bf16), _kv_dequant({"q": vq, "s": vs}, bf16))
+               for q, kq, ks, vq, vs in sets]
+        k3 = lambda *a: da8.decode_attention_q8(*a, valid)
+        k2 = lambda q, k, v: da.decode_attention(q, k, v, valid)
+        lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask)
+        err = sm.max_err(k3(*sets[0]), da8.decode_attention_q8_reference(*sets[0], valid))
+        if not err <= sm.TOL["decode_attention_q8"]:
+            raise AssertionError(f"K3 KV {KV} R {R}: max_abs_err {err}")
+        yield dict(kernel="K3", shape=f"B 8 KV {KV} R {R} T 512", max_abs_err=err,
+                   ms=sm.time_ms_cycle(k3, sets, 50),
+                   device_ms=sm.device_ms_cycle(k3, sets, what="K3"),
+                   device_by_kernel=device_ms_by_kernel(k3, sets),
+                   k2_bf16_ms=sm.time_ms_cycle(k2, deq, 50),
+                   k2_bf16_device_ms=sm.device_ms_cycle(k2, deq, what="K2 on the bf16 cache"),
+                   library_ms=sm.time_ms_cycle(lib, deq, 50),
+                   library_device_ms=sm.device_ms_cycle(lib, deq, what="SDPA"))
+
+
 def tile_rows_cases(sm, dev):
     """K4's tile kernel with tiles of 128 (2 warpgroups) and 256 rows (4)
     where w8::launch_tile takes 128."""
@@ -142,12 +266,15 @@ def tile_rows_cases(sm, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True, help="checkout whose port is timed")
+    ap.add_argument("--kernels", default="K2,K4,K5,K3", help="which kernels' cases, in order")
     ap.add_argument("--tile-rows", action="store_true",
                     help="also time K4's tiles of 128 and 256 rows (this checkout only)")
+    ap.add_argument("--k5-cluster", action="store_true",
+                    help="also time K5's GEMV with a cluster reduce (this checkout only)")
     args = ap.parse_args()
     root = args.root.resolve()
-    if args.tile_rows and root != REPO:
-        ap.error("--tile-rows times this checkout's tile kernel: --root must be this checkout")
+    if (args.tile_rows or args.k5_cluster) and root != REPO:
+        ap.error("--tile-rows and --k5-cluster time this checkout's kernels: --root must be it")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -160,11 +287,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = sm.nvidia_smi_line()
-    cases = [*k2_cases(sm, dev), *k4_cases(sm, dev)]
+    runs = {"K2": lambda: k2_cases(sm, dev), "K4": lambda: k4_cases(sm, dev),
+            "K5": lambda: k5_cases(sm, dev, args.k5_cluster),
+            "K3": lambda: k3_cases(sm, dev)}
+    names = args.kernels.split(",")
     if args.tile_rows:
-        cases += list(tile_rows_cases(sm, dev))
-    for case in cases:
-        print(json.dumps(dict(root=str(args.root), card=card, **case)), flush=True)
+        runs["K4 tile rows"] = lambda: tile_rows_cases(sm, dev)
+        names.append("K4 tile rows")
+    for name in names:
+        for case in runs[name]():
+            print(json.dumps(dict(root=str(args.root), card=card, **case)), flush=True)
     print(json.dumps(dict(root=str(args.root), device_ms_sessions=sm.device_ms_report())))
     return 0
 
