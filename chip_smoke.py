@@ -9,15 +9,18 @@
    for the quantized kernels), timing both with CUDA events, beside its
    roofline bound and, where one PyTorch call computes the same function,
    that call's time; the decode kernels' inputs cycle through copies that
-   pass the L2 cache, and K2's, K3's, K4's and K5's cases also read each
-   call's device time, and their library calls', from torch.profiler (K4
-   and K5 at decode M 1 and 8, at M 64, 512 and 2048 on the 7B w13, M 256
-   on wqkv and M 512 on wo). The cuDNN GRU layer is
+   pass the L2 cache, and K2's, K3's, K4's, K5's, K8's, K8u's and K9's
+   cases also read each call's device time (the union of its kernels'
+   spans), and their library calls' or unfused sequences', from
+   torch.profiler (K4 and K5 at decode M 1 and 8, at M 64, 512 and 2048 on
+   the 7B w13, M 256 on wqkv and M 512 on wo). The cuDNN GRU layer is
    timed beside the trainable GRU layer as a yardstick, the bf16 decode
    fusions (K8, K8u, K7) and the int8 ones (K9 in both modes at the 7B
    wqkv, wo and lm-head shapes, K7q at the 7B FFN) beside the unfused
    sequence each replaces, and K3m (K3's int8_mxu mode, which no path
-   runs) beside K3's default mode.
+   runs) beside K3's default mode. K8's, K8u's and K9's cases also log
+   what a call asks of the host: its kernels (the nodes of a captured
+   call) and its allocations.
 2. Checks the port against its f32 CPU path: MiniROAD eval at full width
    on two video prefixes, one MiniROAD train step at full width (K1 + K6,
    bf16 stream, dropout 0) on 16 windows, a 2-layer LLaMA at 7B width
@@ -206,14 +209,30 @@ def copies_past_l2(make, nbytes_one, at_least=2):
 DEVICE_MS_SESSIONS = []
 
 
+def busy_us(prof):
+    """The union of the device's activity intervals in a profiler session,
+    us: kernels that overlap (a programmatic dependent launch starts beside
+    its prerequisite) count once. None where the session saw no device
+    activity."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy if spans else None
+
+
 def device_ms_cycle(fn, arg_sets, iters=20, attempts=3, what=""):
     """The device's own time a call of ``fn`` over ``arg_sets`` in turn:
-    the span of every kernel, copy and set the calls ran, from
-    torch.profiler, over the calls; beside a host-clock time it separates
-    the enqueue from the device work. On some hosts a profiler session now
-    and then records no device event at all: the session is run again, and
-    after ``attempts`` empty ones the time is None (not measured). Each
-    reading's count of sessions goes to DEVICE_MS_SESSIONS."""
+    the time in which a kernel, copy or set of the calls ran (the union of
+    their spans, from torch.profiler), over the calls; beside a host-clock
+    time it separates the enqueue from the device work. On some hosts a
+    profiler session now and then records no device event at all: the
+    session is run again, and after ``attempts`` empty ones the time is None
+    (not measured). Each reading's count of sessions goes to
+    DEVICE_MS_SESSIONS."""
     fn(*arg_sets[0])
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -222,13 +241,12 @@ def device_ms_cycle(fn, arg_sets, iters=20, attempts=3, what=""):
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if spans:
+        busy = busy_us(prof)
+        if busy is not None:
             DEVICE_MS_SESSIONS.append((what, n))
             if n > 1:
                 log(f"  torch.profiler: {what} read in session {n}")
-            return sum(spans) / 1e3 / iters
+            return busy / 1e3 / iters
     DEVICE_MS_SESSIONS.append((what, None))
     log(f"  torch.profiler recorded no device event for {what} in {attempts} sessions: "
         "not measured")
@@ -240,6 +258,45 @@ def device_ms_report():
     retried = [f"{w}: {n}" for w, n in DEVICE_MS_SESSIONS if n != 1]
     return dict(readings=len(DEVICE_MS_SESSIONS), not_one_session=retried,
                 not_measured=[w for w, n in DEVICE_MS_SESSIONS if n is None])
+
+
+def launches_and_allocations(fn, dev, calls=10):
+    """What one call of ``fn`` asks of the host: the kernels it launches and
+    the other work it enqueues (the nodes of a CUDA graph that captures one
+    call, counted with libcuda's cuGraphGetNodes), and the allocations it makes (over
+    ``calls`` calls, from the caching allocator's statistics). A warm call
+    on the capture stream first makes the stream's workspaces."""
+    import ctypes
+
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        for _ in range(calls):
+            fn()
+        stream.synchronize()
+    allocations = (torch.cuda.memory_stats(dev)["allocation.all.allocated"] - before) / calls
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(kind.value)
+    del graph
+    kernels = types.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+    return dict(kernels=kernels, other_nodes=len(types) - kernels, allocations=allocations)
 
 
 def fmt_ms(x):
@@ -634,6 +691,9 @@ def check_fused_kernels(dev):
         def k8(q, k, v, wo, h, *_):
             return dwo.decode_attention_wo(q, k, v, valid, wo, residual=h)
 
+        def k8_proj(q, k, v, wo, *_):
+            return dwo.decode_attention_wo(q, k, v, valid, wo)
+
         used = int(valid.sum())  # positions below the bounds: what this data needs read
         flops = 2 * 2 * used * KV * R * hd + 2 * B * H * hd * D
         case = dict(
@@ -641,19 +701,26 @@ def check_fused_kernels(dev):
                 max_err(proj, dwo.decode_attention_wo_reference(q, k, v, valid, wo)),
                 max_err(res, dwo.decode_attention_wo_reference(q, k, v, valid, wo, residual=h))),
             ms=time_ms_cycle(k8, sets, 50),
-            ms_without_residual=time_ms_cycle(
-                lambda q, k, v, wo, *_: dwo.decode_attention_wo(q, k, v, valid, wo), sets, 50),
+            device_ms=device_ms_cycle(k8, sets, what=f"K8 B {B}"),
+            ms_without_residual=time_ms_cycle(k8_proj, sets, 50),
+            device_ms_without_residual=device_ms_cycle(k8_proj, sets,
+                                                       what=f"K8 B {B} without the residual"),
             plain_ms=time_ms_cycle(
                 lambda q, k, v, wo, h, *_: dwo.decode_attention_wo_reference(
                     q, k, v, valid, wo, residual=h), sets, 20),
             **bound(flops, 2 * used * KV * hd * 2 + nbytes(q, valid, wo, h, res)),
             library_ms=None,  # no one PyTorch call: see unfused_ms
             unfused_ms=time_ms_cycle(unfused, sets, 50),
+            unfused_device_ms=device_ms_cycle(unfused, sets, what=f"K8 B {B} unfused"),
+            per_call=launches_and_allocations(lambda: k8(*sets[0]), dev),
         )
         cases["decode_attention_wo"].append(case)
         log_case("decode_attention_wo", f"B={B} KV={KV} R={R} hd={hd} T={T} D={D}", case)
-        log(f"  without the residual {case['ms_without_residual']:.4f} ms; the unfused "
-            f"sequence (K2, torch.mm, cast, add) {case['unfused_ms']:.4f} ms")
+        log(f"  device {fmt_ms(case['device_ms'])} ms; without the residual "
+            f"{case['ms_without_residual']:.4f}, device "
+            f"{fmt_ms(case['device_ms_without_residual'])}; the unfused sequence (K2, torch.mm, "
+            f"cast, add) {case['unfused_ms']:.4f}, device {fmt_ms(case['unfused_device_ms'])}; "
+            f"a call: {case['per_call']}")
 
         # K8u: the caches after the kernel must equal write-then-attend exactly
         ck, cv = k.clone(), v.clone()
@@ -669,11 +736,14 @@ def check_fused_kernels(dev):
             dwo.write_token_kv(k_new, v_new, k, v, pos)
             return unfused(q, k, v, wo, h)
 
+        def k8u(q, k, v, wo, h, kn, vn):
+            return dwo.decode_attention_wo_res_upd(q, h, kn, vn, k, v, pos, wo)[0]
+
         upd_used = int((pos + 1).sum())
         case = dict(
             B=B, max_abs_err=max_err(out, want), cache_equal=True,
-            ms=time_ms_cycle(lambda q, k, v, wo, h, kn, vn: dwo.decode_attention_wo_res_upd(
-                q, h, kn, vn, k, v, pos, wo), sets, 50),
+            ms=time_ms_cycle(k8u, sets, 50),
+            device_ms=device_ms_cycle(k8u, sets, what=f"K8u B {B}"),
             plain_ms=time_ms_cycle(lambda q, k, v, wo, h, kn, vn:
                                    dwo.decode_attention_wo_res_upd_reference(
                                        q, h, kn, vn, k, v, pos, wo), sets, 20),
@@ -684,12 +754,15 @@ def check_fused_kernels(dev):
                     + nbytes(q, pos, wo, h, out)),
             library_ms=None,
             unfused_ms=time_ms_cycle(unfused_upd, sets, 50),
+            unfused_device_ms=device_ms_cycle(unfused_upd, sets, what=f"K8u B {B} unfused"),
+            per_call=launches_and_allocations(lambda: k8u(*sets[0]), dev),
         )
         cases["decode_attention_wo_res_upd"].append(case)
         log_case("decode_attention_wo_res_upd", f"B={B} KV={KV} R={R} hd={hd} T={T} D={D}",
                  case, "; caches equal write-then-attend")
-        log(f"  the unfused sequence (cache write, K2, torch.mm, cast, add) "
-            f"{case['unfused_ms']:.4f} ms")
+        log(f"  device {fmt_ms(case['device_ms'])} ms; the unfused sequence (cache write, K2, "
+            f"torch.mm, cast, add) {case['unfused_ms']:.4f}, device "
+            f"{fmt_ms(case['unfused_device_ms'])}; a call: {case['per_call']}")
 
     # K7 at the 1B FFN (M 1 and 8) and the 7B FFN (M 1)
     for M, D_, F in ((1, 2048, 5632), (8, 2048, 5632), (1, 4096, 11008)):
@@ -708,8 +781,9 @@ def check_fused_kernels(dev):
 
     rows = {}
     for name, cs in cases.items():
-        rows[name] = {k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")}
+        rows[name] = {k: cs[0][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "unfused_ms", "unfused_device_ms")
+                      if k in cs[0]}
         rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cs)
         if not rows[name]["max_abs_err"] <= TOL[name]:
             raise AssertionError(f"{name}: max_abs_err {rows[name]['max_abs_err']} > {TOL[name]}")
@@ -776,15 +850,21 @@ def check_q8_fused_kernels(dev):
         iters = 20 if M > 8 else 50
         case = dict(
             site=site, M=M, max_abs_err=max_err(y, plain(*sets[0])),
-            ms=time_ms_cycle(k9, sets, iters), plain_ms=time_ms_cycle(plain, sets, iters),
+            ms=time_ms_cycle(k9, sets, iters),
+            device_ms=device_ms_cycle(k9, sets, what=f"K9 {site} M {M}"),
+            plain_ms=time_ms_cycle(plain, sets, iters),
             **bound(2 * M * K * N, moved),
             library_ms=None,  # no one PyTorch call: see unfused_ms
             unfused_ms=time_ms_cycle(unfused, sets, iters),
+            unfused_device_ms=device_ms_cycle(unfused, sets, what=f"K9 {site} M {M} unfused"),
+            per_call=launches_and_allocations(lambda: k9(*sets[0]), dev),
         )
         cases["fused_dense_q8"].append(case)
         log_case("fused_dense_q8", f"{site} ({mode}) M={M} K={K} N={N}", case)
-        log(f"  the unfused sequence ({'rms_norm, K4, cast' if mode == 'norm' else 'K4, cast, add'})"
-            f" {case['unfused_ms']:.4f} ms")
+        log(f"  device {fmt_ms(case['device_ms'])} ms; the unfused sequence "
+            f"({'rms_norm, K4, cast' if mode == 'norm' else 'K4, cast, add'}) "
+            f"{case['unfused_ms']:.4f}, device {fmt_ms(case['unfused_device_ms'])}; "
+            f"a call: {case['per_call']}")
 
     # K7q at the 7B FFN: M 1 and 8, D 4096, F 11008
     D, F = 4096, 11008
@@ -860,7 +940,10 @@ def check_q8_fused_kernels(dev):
         ms=sum(c["ms"] for c in step), plain_ms=sum(c["plain_ms"] for c in step),
         bound_ms=sum(c["bound_ms"] for c in step),
         bound_by="bytes" if all(c["bound_by"] == "bytes" for c in step) else "operations",
-        library_ms=None)}
+        library_ms=None, unfused_ms=sum(c["unfused_ms"] for c in step))}
+    for key in ("device_ms", "unfused_device_ms"):
+        vals = [c[key] for c in step]
+        rows["fused_dense_q8"][key] = None if None in vals else sum(vals)
     for name in ("fused_ffn_block_q8", "decode_attention_q8_mxu"):
         rows[name] = {k: cases[name][0][k] for k in keys}
     for name, cs in cases.items():
@@ -1422,14 +1505,8 @@ def run_main_path(dev):
 def _busy_share(prof, wall_ms):
     """Union of the device's activity intervals over the window's wall
     time; None where the profiler saw no device activity."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -math.inf
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy / 1e3 / wall_ms if spans else None
+    busy = busy_us(prof)
+    return None if busy is None else busy / 1e3 / wall_ms
 
 
 def train_step_ms(cfg, dev, n_timed=20, n_profiled=5):

@@ -18,11 +18,16 @@
 // v_new, not from the cache. No other block reads or writes that row, so
 // no ordering across blocks is needed, and the cache afterwards equals
 // write-then-attend bit for bit.
+//
+// Every pass-1 block first lets the launch that depends on it start
+// (hopper::launch_dependents), so that K8's projection blocks, launched as
+// its programmatic dependents, stream their weights beside pass 1.
 #pragma once
 
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace decode_split {
 
@@ -55,6 +60,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     NewKV nkv,                // kUpd only
     __nv_bfloat16* k_cache,   // kUpd only: k and v, written at row pos
     __nv_bfloat16* v_cache) {
+    hopper::launch_dependents();
     const int s = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
     const int pos = kUpd ? valid[b] : -1;
     const int vl = min(kUpd ? pos + 1 : valid[b], T);
@@ -191,8 +197,10 @@ __device__ __forceinline__ int live_splits(int valid, int T) {
 }
 
 // The merge statistics of (bg, r) over its `live` splits: the max M and
-// 1 / max(L, 1e-30), L = sum_s l_s exp(m_s - M).
-__device__ __forceinline__ float2 merge_stats(const float* __restrict__ part_ml, size_t bg,
+// 1 / max(L, 1e-30), L = sum_s l_s exp(m_s - M). The merge reads pass 1's
+// partial sums through plain pointers: its kernel may have started before
+// pass 1 ended (a programmatic dependent launch).
+__device__ __forceinline__ float2 merge_stats(const float* part_ml, size_t bg,
                                               int r, int R, int NS, int live) {
     float M = -INFINITY;
     for (int s = 0; s < live; ++s) M = fmaxf(M, part_ml[((bg * NS + s) * R + r) * 2]);
@@ -205,8 +213,8 @@ __device__ __forceinline__ float2 merge_stats(const float* __restrict__ part_ml,
 }
 
 // The normalised output channel d of (bg, r), rounded to bf16.
-__device__ __forceinline__ __nv_bfloat16 merge_value(const float* __restrict__ part_acc,
-                                                     const float* __restrict__ part_ml,
+__device__ __forceinline__ __nv_bfloat16 merge_value(const float* part_acc,
+                                                     const float* part_ml,
                                                      size_t bg, int r, int d, int R, int hd,
                                                      int NS, int live, float2 stats) {
     float o = 0.f;

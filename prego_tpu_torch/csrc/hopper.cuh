@@ -2,9 +2,10 @@
 // the kernels that use them (K2 in decode_attention.cu, K4 in
 // w8_matmul.cuh): mbarriers, bulk and tensor (TMA) copies, cp.async with
 // an mbarrier arrival, the async-proxy fence, named barriers, and wgmma's
-// shared-memory descriptors and fences; and the device's SM count, which
-// sizes their grids. Addresses of shared memory are 32-bit shared-window
-// addresses (smem_u32).
+// shared-memory descriptors and fences; programmatic dependent launch and
+// an L2 prefetch (K8 in decode_attention_wo.cu, K9 in fused_dense_q8.cu);
+// and the device's SM count, which sizes their grids. Addresses of shared
+// memory are 32-bit shared-window addresses (smem_u32).
 #pragma once
 
 #include <stdint.h>
@@ -127,6 +128,43 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Programmatic dependent launch. A kernel launched by launch_dependent may
+// start once every block of the kernel before it on the stream has called
+// launch_dependents() or exited, so that its blocks run beside that
+// kernel's tail; its wait_prerequisite() returns once that kernel has
+// completed and its memory operations are visible. Work before the wait
+// must not read what that kernel writes.
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_prerequisite() {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// the 128-byte line holding p on its way into L2, no register held
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// kernel<<<grid, block, 0, stream>>>(args...) as a programmatic dependent
+// of the stream's previous kernel; no other launch is tried if it fails
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
+                             cudaStream_t stream, Args... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.stream = stream;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    at[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+    return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // A wgmma shared-memory matrix descriptor with the 128-byte swizzle:

@@ -113,25 +113,45 @@ def stream_ptr(device: torch.device) -> int:
 
 
 class Workspace:
-    """Buffers of ``dtype`` that a kernel keeps between calls, one set per
-    (device, stream): the calls on a stream use them in stream order. A set
-    is allocated anew (zeroed where ``zero``; its kernel then leaves it
-    zero) only when a call needs more elements than it holds."""
+    """Buffers that a kernel keeps between calls, one set per (device,
+    stream): the calls on a stream use them in stream order. ``dtype`` and
+    ``zero`` are one value for every buffer of a set, or a tuple with one
+    value a buffer (say f32 partial sums beside int32 counters that must be
+    zero). A set is allocated anew (zeroed where ``zero``; its kernel then
+    leaves it zero) only when a call needs more elements than it holds.
 
-    def __init__(self, dtype: torch.dtype, zero: bool = False):
+    A CUDA graph keeps the addresses of the set it captured. A set that a
+    capture has used is therefore never freed: when a later call outgrows
+    it, it is kept in ``retired`` beside its successor, so that a replay
+    still writes into memory of its own (and finds its counters as its
+    kernels left them, zero)."""
+
+    def __init__(self, dtype, zero=False):
         self.dtype = dtype
         self.zero = zero
-        self.held: Dict[Tuple[int, int], Tuple[List[torch.Tensor], Tuple[int, ...]]] = {}
+        # (device, stream) -> (buffers, their sizes, whether a capture used them)
+        self.held: Dict[Tuple[int, int], Tuple[List[torch.Tensor], Tuple[int, ...], bool]] = {}
+        self.retired: List[List[torch.Tensor]] = []
 
     def get(self, device: torch.device, stream: int, *sizes: int) -> List[torch.Tensor]:
         key = (device.index, stream)
-        bufs, held = self.held.get(key, (None, ()))
+        bufs, held, captured = self.held.get(key, (None, (), False))
         if bufs is None or any(n > h for n, h in zip(sizes, held)):
+            if captured:
+                self.retired.append(bufs)
             held = tuple(max(n, h) for n, h in zip(sizes, held or (0,) * len(sizes)))
-            new = torch.zeros if self.zero else torch.empty
-            bufs = [new(n, dtype=self.dtype, device=device) for n in held]
-            self.held[key] = (bufs, held)
+            per = lambda v, i: v[i] if isinstance(v, tuple) else v
+            bufs = [(torch.zeros if per(self.zero, i) else torch.empty)(
+                        n, dtype=per(self.dtype, i), device=device)
+                    for i, n in enumerate(held)]
+            captured = False
+        self.held[key] = (bufs, held, captured or _capturing(device))
         return bufs
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether the current stream of ``device`` is capturing a CUDA graph."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:

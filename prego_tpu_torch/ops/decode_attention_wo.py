@@ -19,7 +19,10 @@ at ``pos`` in place and then attends over positions <= pos (valid = pos +
 On a CUDA tensor the wrappers launch the kernel (bf16, R <= 8, hd a
 multiple of 16 up to 256, D a multiple of 8; more than 8 rows go in calls
 of 8) or raise; on a CPU tensor they run the plain versions, which compose
-``decode_attention_reference``, ``mm_f32`` and the add.
+``decode_attention_reference``, ``mm_f32`` and the add. A call of up to 8
+rows allocates its output alone: the kernel's partial sums and counters
+live in a workspace kept per (device, stream), whose counters the kernel
+leaves zero.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, check_cuda_tensor, stream_ptr
+from prego_tpu_torch.ops._cuda import (
+    CudaKernel, Workspace, c_int, c_ptr, check_cuda_tensor, stream_ptr,
+)
 from prego_tpu_torch.ops.decode_attention import ValidLen, _valid_vec, decode_attention_reference
 from prego_tpu_torch.ops.dense import mm_f32
 
@@ -36,17 +41,22 @@ _SPLITS = {"prego_decode_attention_wo_splits": [c_int]}
 KERNEL = CudaKernel(
     "decode_attention_wo",
     "decode_attention_wo.cu",
-    {"prego_decode_attention_wo": [c_ptr] * 10 + [c_int] * 6 + [c_ptr], **_SPLITS},
+    {"prego_decode_attention_wo": [c_ptr] * 11 + [c_int] * 6 + [c_ptr], **_SPLITS},
 )
 # K8u lives in the same library; its own entry keeps its own launch count
 KERNEL_UPD = CudaKernel(
     "decode_attention_wo",
     "decode_attention_wo.cu",
     {"prego_decode_attention_wo_res_upd":
-         [c_ptr] * 4 + [c_int] * 2 + [c_ptr] * 8 + [c_int] * 6 + [c_ptr], **_SPLITS},
+         [c_ptr] * 4 + [c_int] * 2 + [c_ptr] * 9 + [c_int] * 6 + [c_ptr], **_SPLITS},
 )
 
 MAX_ROWS = 8  # batch rows one kernel call takes
+PROJ_COLS = 64  # output columns of a projection block, one counter each (csrc/decode_attention_wo.cu)
+# pass 1's partial sums (B, KV, NS, R, hd) and (m, l), the head partials
+# (H, B, D) and the column tiles' counters (zero between calls); K8 and K8u
+# share it
+WORKSPACE = Workspace((torch.float32,) * 3 + (torch.int32,), zero=(False,) * 3 + (True,))
 
 
 def decode_attention_wo_reference(
@@ -104,12 +114,9 @@ def _check(q, cache_k, cache_v, wo, residual, name):
     return B, KV, R, T, hd, D
 
 
-def _scratch(B, KV, R, T, hd, D, device):
-    ns = KERNEL.lib().prego_decode_attention_wo_splits(T)
-    f32 = torch.float32
-    return (torch.empty(B, KV, ns, R, hd, dtype=f32, device=device),
-            torch.empty(B, KV, ns, R, 2, dtype=f32, device=device),
-            torch.empty(KV * R, B, D, dtype=f32, device=device))
+def _workspace(B, KV, R, T, hd, D, device, stream):
+    rows = B * KV * KERNEL.lib().prego_decode_attention_wo_splits(T) * R
+    return WORKSPACE.get(device, stream, rows * hd, rows * 2, KV * R * B * D, -(-D // PROJ_COLS))
 
 
 def decode_attention_wo(
@@ -133,7 +140,8 @@ def decode_attention_wo(
                                 cache_v[i : i + MAX_ROWS], valid[i : i + MAX_ROWS], wo,
                                 None if residual is None else residual[i : i + MAX_ROWS])
             for i in range(0, B, MAX_ROWS)])
-    part_acc, part_ml, part = _scratch(B, KV, R, T, hd, D, q.device)
+    stream = stream_ptr(q.device)
+    ws = _workspace(B, KV, R, T, hd, D, q.device, stream)
     out = torch.empty(B, 1, D, dtype=torch.float32 if residual is None else residual.dtype,
                       device=q.device)
     KERNEL.launches += 1
@@ -141,8 +149,7 @@ def decode_attention_wo(
         "prego_decode_attention_wo",
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), valid.data_ptr(), wo.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), part.data_ptr(),
-        B, KV, R, T, hd, D, stream_ptr(q.device),
+        *(w.data_ptr() for w in ws), B, KV, R, T, hd, D, stream,
     )
     return out
 
@@ -191,14 +198,14 @@ def decode_attention_wo_res_upd(
                 p[i : i + MAX_ROWS], wo)[0]
             for i in range(0, B, MAX_ROWS)])
         return out, cache_k, cache_v
-    part_acc, part_ml, part = _scratch(B, KV, R, T, hd, D, q.device)
+    stream = stream_ptr(q.device)
+    ws = _workspace(B, KV, R, T, hd, D, q.device, stream)
     out = torch.empty_like(residual)
     KERNEL_UPD.launches += 1
     KERNEL_UPD.call(
         "prego_decode_attention_wo_res_upd",
         q.data_ptr(), residual.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_stride,
         v_stride, cache_k.data_ptr(), cache_v.data_ptr(), p.data_ptr(), wo.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), part.data_ptr(),
-        B, KV, R, T, hd, D, stream_ptr(q.device),
+        out.data_ptr(), *(w.data_ptr() for w in ws), B, KV, R, T, hd, D, stream,
     )
     return out, cache_k, cache_v

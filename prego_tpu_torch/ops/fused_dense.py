@@ -15,8 +15,11 @@ convention (bf16 operands, f32 products and sums, the column scale after
 the sum), then the cast or the residual add in the residual's dtype.
 
 On a CUDA tensor the wrapper launches the kernel (bf16 x, any number of
-rows: K4's streaming path up to 8, its tensor-core tiles above) or
-raises; on a CPU tensor it runs ``fused_dense_q8_reference``.
+rows: K4's streaming loop up to 8, in norm mode with the norm in its
+prologue at some row counts; K4's tensor-core tiles above) or raises; on a CPU tensor it
+runs ``fused_dense_q8_reference``. A call allocates its output alone: the
+kernel's partial sums and normed rows live in a workspace kept per
+(device, stream).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Optional
 import torch
 
 from prego_tpu_torch.ops._cuda import (
-    CudaKernel, c_float, c_int, c_ptr, check_cuda_tensor, stream_ptr,
+    CudaKernel, Workspace, c_float, c_int, c_ptr, check_cuda_tensor, stream_ptr,
 )
 from prego_tpu_torch.ops.fused_ffn import rms_norm
 from prego_tpu_torch.ops.quant import int8_matmul_reference
@@ -39,6 +42,10 @@ KERNEL = CudaKernel(
         "prego_fused_dense_q8_splits": [c_int] * 3,
     },
 )
+
+# f32 partial sums (splits x M x N; the tile path's scaled y) and the normed
+# rows (M x K bf16) of the norm launch
+WORKSPACE = Workspace((torch.float32, torch.bfloat16))
 
 
 def _check_mode(norm_weight, residual) -> None:
@@ -91,24 +98,23 @@ def fused_dense_q8(
     if residual is not None:
         check_cuda_tensor("residual", residual, torch.bfloat16, (M, N))
         out_dtype = torch.bfloat16
-        xn = None
     else:
         check_cuda_tensor("norm_weight", norm_weight, torch.bfloat16, (K,))
         out_dtype = torch.float32 if out_dtype is None else out_dtype
         if out_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"fused_dense_q8: out_dtype {out_dtype} (f32 or bf16)")
-        xn = torch.empty(M, K, dtype=torch.bfloat16, device=x.device)
     splits = KERNEL.lib().prego_fused_dense_q8_splits(M, K, N)  # 0: the tile path (M > 8)
+    sizes = (splits * M * N if splits else M * N if out_dtype == torch.bfloat16 else 0,
+             M * K if residual is None else 0)
+    stream = stream_ptr(x.device)
+    part, xn = WORKSPACE.get(x.device, stream, *sizes)
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
-    # f32 partial sums by split; the tile path's scaled y unless it goes to an f32 out
-    part = (torch.empty(max(splits, 1), M, N, dtype=torch.float32, device=x.device)
-            if splits or out_dtype == torch.bfloat16 else out)
     KERNEL.launches += 1
     KERNEL.call(
         "prego_fused_dense_q8",
         x.data_ptr(), 0 if norm_weight is None else norm_weight.data_ptr(),
         0 if residual is None else residual.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        0 if xn is None else xn.data_ptr(), part.data_ptr(), out.data_ptr(),
-        M, K, N, splits, int(out_dtype == torch.bfloat16), float(eps), stream_ptr(x.device),
+        xn.data_ptr(), part.data_ptr(), out.data_ptr(),
+        M, K, N, splits, int(out_dtype == torch.bfloat16), float(eps), stream,
     )
     return out

@@ -680,6 +680,190 @@ def test_fused_dense_q8_lm_head_at_64_rows(cuda_device):
     _dense_case(cuda_device, 64, 4096, 32000, "f32")
 
 
+# K9's decode shapes: the 7B norm + wqkv (bf16 out), wo + residual, norm +
+# lm-head (f32 out), and an N that is no multiple of the 128-column tile
+K9_DECODE = [(4096, 12288, "bf16"), (4096, 4096, "res"), (4096, 32000, "f32"),
+             (4096, 1000, "bf16"), (256, 1000, "res")]
+K9_FOLD_AT = (1, 2, 6)  # csrc/fused_dense_q8.cu kNormGemv: the norm in the GEMV at these rows
+
+
+def _dense_kw(args, out):
+    x, q, s, nw, res = args
+    return dict(residual=res) if out == "res" else dict(
+        norm_weight=nw, out_dtype=torch.bfloat16 if out == "bf16" else torch.float32)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("K,N,out", K9_DECODE)
+def test_fused_dense_q8_decode_is_repeatable(cuda_device, M, K, N, out):
+    """K9's decode path: the splits are summed in split order, so two calls
+    give the same bits, within the plain version's tolerance; and each row
+    alone (one row: the norm in the GEMV's prologue) gives the bits of that
+    row in the M-row call (a norm launch first at the rows not in
+    K9_FOLD_AT)."""
+    args = _dense_inputs(cuda_device, M, K, N, seed=3 * M + K)
+    kw = _dense_kw(args, out)
+    first = fd.fused_dense_q8(*args[:3], **kw)
+    second = fd.fused_dense_q8(*args[:3], **kw)
+    x, q, s, nw, res = args
+    rows = [fd.fused_dense_q8(x[m : m + 1].clone(), q, s, **_dense_kw(
+                (None, None, None, nw, res[m : m + 1].clone()), out)) for m in range(M)]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, torch.cat(rows))
+    want = fd.fused_dense_q8_reference(*args[:3], **kw)
+    tol = DENSE_F32_REL_TOL if out == "f32" else DENSE_BF16_REL_TOL
+    assert float((first.float() - want.float()).abs().max()) <= tol * float(
+        want.float().abs().max())
+
+
+@pytest.mark.parametrize("B,KV,R,hd,D", [(1, 16, 1, 128, 2048), (2, 4, 8, 64, 512),
+                                         (5, 2, 4, 256, 256), (8, 16, 1, 128, 2048),
+                                         (7, 8, 2, 128, 1000)])
+def test_decode_attention_wo_kernels_are_repeatable(cuda_device, B, KV, R, hd, D):
+    """K8 (both bodies) and K8u: bounds 0, 1, a split boundary and T among
+    the rows; the head partials meet in the workspace in head order, so two
+    calls give the same bits, and K8u's caches equal write-then-attend."""
+    T = 512
+    q, k, v, wo, h = _wo_inputs(cuda_device, B, KV, R, T, hd, D, seed=B + R)
+    valid = torch.tensor([0, 1, 64, T, 65, 63, 300, 511][:B], dtype=torch.int32,
+                         device=cuda_device)
+    for residual in (None, h):
+        first = dwo.decode_attention_wo(q, k, v, valid, wo, residual=residual)
+        assert torch.equal(dwo.decode_attention_wo(q, k, v, valid, wo, residual=residual), first)
+        torch.testing.assert_close(first.float(), dwo.decode_attention_wo_reference(
+            q, k, v, valid, wo, residual).float(), **WO_TOL)
+    k_new, v_new = _qkv_views(cuda_device, B, KV, R, hd, seed=B)
+    pos = (valid - 1).clamp(min=0)
+    ck, cv = k.clone(), v.clone()
+    out, _, _ = dwo.decode_attention_wo_res_upd(q, h, k_new, v_new, ck, cv, pos, wo)
+    again, _, _ = dwo.decode_attention_wo_res_upd(q, h, k_new, v_new, ck, cv, pos, wo)
+    want, rk, rv = dwo.decode_attention_wo_res_upd_reference(
+        q, h, k_new, v_new, k.clone(), v.clone(), pos, wo)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out) and torch.equal(ck, rk) and torch.equal(cv, rv)
+    torch.testing.assert_close(out.float(), want.float(), **WO_TOL)
+
+
+def test_decode_attention_wo_counters_are_left_zero(cuda_device):
+    """The projection's column-tile counters are zero after K8 and K8u
+    calls of different shapes in a row, so any later call (or a graph's
+    replay) may start from them."""
+    for B, KV, R, hd, D in ((1, 16, 1, 128, 2048), (8, 4, 2, 64, 1000), (3, 2, 8, 256, 4096),
+                            (8, 16, 1, 128, 2048)):
+        q, k, v, wo, h = _wo_inputs(cuda_device, B, KV, R, 512, hd, D, seed=B)
+        dwo.decode_attention_wo(q, k, v, 300, wo, residual=h)
+        k_new, v_new = _qkv_views(cuda_device, B, KV, R, hd, seed=B)
+        dwo.decode_attention_wo_res_upd(q, h, k_new, v_new, k, v, 299, wo)
+    torch.cuda.synchronize()
+    *_, tickets = dwo.WORKSPACE.get(cuda_device, torch.cuda.current_stream().cuda_stream,
+                                    0, 0, 0, 64)
+    assert tickets.numel() >= 64 and not torch.any(tickets)
+
+
+def _k8_k9_calls(device):
+    """One call each of K8 (with and without the residual) and K8u at the
+    1B shape, B 1 and 8, and of K9's three 7B decode sites at M 1 and 8:
+    (name, call, kernels a call launches, the tensors it reads)."""
+    calls = []
+    for B in (1, 8):
+        q, k, v, wo, h = _wo_inputs(device, B, 16, 1, 512, 128, 2048, seed=B)
+        valid = torch.tensor([300, 0, 512, 1, 77, 255, 256, 511][:B], dtype=torch.int32,
+                             device=device)
+        k_new, v_new = _qkv_views(device, B, 16, 1, 128, seed=B)
+        pos = (valid - 1).clamp(min=0)
+        calls += [
+            (f"K8 B {B}", lambda a=(q, k, v, valid, wo): dwo.decode_attention_wo(*a), 2,
+             (q, k, v, wo)),
+            (f"K8 res B {B}", lambda a=(q, k, v, valid, wo, h): dwo.decode_attention_wo(*a), 2,
+             (q, k, v, wo, h)),
+            (f"K8u B {B}", lambda a=(q, h, k_new, v_new, k, v, pos, wo):
+                dwo.decode_attention_wo_res_upd(*a)[0], 2, (q, h, k_new, v_new, wo)),
+        ]
+    for M in (1, 8):
+        for K, N, out in K9_DECODE[:3]:
+            args = _dense_inputs(device, M, K, N, seed=M)
+            kernels = 2 if out == "res" or M in K9_FOLD_AT else 3
+            calls.append((f"K9 {out} M {M}", lambda a=args, kw=_dense_kw(args, out):
+                          fd.fused_dense_q8(*a[:3], **kw), kernels, args))
+    return calls
+
+
+def test_k8_and_k9_launch_counts_and_allocate_only_their_output(cuda_device):
+    """K8 and K8u: two kernels a call (pass 1 and the projection launched as
+    its programmatic dependent, no reduce kernel); K9 at M <= 8: the GEMV
+    and a plainly launched reduce, in norm mode with the norm in the GEMV's
+    prologue at the rows of K9_FOLD_AT, else after a norm launch (the GEMV
+    its programmatic dependent at some row counts). Each allocates its
+    output alone once its workspace is as large as it needs; the kernels are
+    counted as the nodes of a captured call."""
+    calls = _k8_k9_calls(cuda_device)
+    for _, fn, _, _ in calls:  # built, warm, and their workspaces made
+        fn()
+    torch.cuda.synchronize()
+    for name, fn, kernels, _ in calls:
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(10):
+            fn()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 10, name
+        assert _graph_node_types(fn, cuda_device) == [0] * kernels, name
+
+
+def test_k8_and_k9_replay_from_a_cuda_graph(cuda_device):
+    """A call captured in a CUDA graph (K8's and K9's programmatic edges and
+    K8's tickets included), replayed with new inputs copied into the same
+    buffers, gives the eager call's bits on those inputs."""
+    stream = torch.cuda.Stream(cuda_device)
+    for name, fn, _, inputs in _k8_k9_calls(cuda_device):
+        with torch.cuda.stream(stream):
+            fn()  # the workspace for this stream
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = fn()
+        fresh = [t.clone() for t in inputs]
+        for t in fresh:  # new values of the same kinds: permuted along the last dim
+            t.copy_(t[..., torch.randperm(t.shape[-1], device=cuda_device)])
+        for t, f in zip(inputs, fresh):
+            t.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, fn()), name
+
+
+def test_k8_and_k9_graph_replays_after_the_workspace_grows(cuda_device):
+    """A call captured at B 1 (K8, K8u) or M 1 (K9), then an eager call at B
+    8 or M 8 on the same stream, which outgrows the workspace the graph
+    holds; the replay, with new inputs in the captured buffers, still gives
+    the eager B 1 or M 1 bits, and leaves the tensors allocated after the
+    growth (which may take memory a freed workspace held) untouched."""
+    stream = torch.cuda.Stream(cuda_device)
+    small, large = [], []
+    for name, fn, _, inputs in _k8_k9_calls(cuda_device):
+        (small if name.endswith(" 1") else large).append((name, fn, inputs))
+    for (name, fn, inputs), (_, grow, _) in zip(small, large):
+        ws = dwo.WORKSPACE if name.startswith("K8") else fd.WORKSPACE
+        ws.held.clear()  # the warm call below makes this stream's set, at the small shape
+        with torch.cuda.stream(stream):
+            fn()
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = fn()
+        retired = len(ws.retired)
+        with torch.cuda.stream(stream):
+            grow()  # a larger workspace for this stream; the captured set is kept
+        stream.synchronize()
+        assert len(ws.retired) == retired + 1, name
+        sentinels = [torch.full((n,), 7, dtype=torch.int32, device=cuda_device)
+                     for n in (1 << 10, 1 << 14, 1 << 18, 1 << 20)]
+        for t in inputs:  # new values of the same kinds: permuted along the last dim
+            t.copy_(t[..., torch.randperm(t.shape[-1], device=cuda_device)].clone())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(bool(torch.all(t == 7)) for t in sentinels), name
+        assert torch.equal(captured, fn()), name
+
+
 def _ffn_q8_inputs(device, M, D, F, seed=0):
     h, nw, w13, w2 = _ffn_inputs("cpu", M, D, F, seed)
     w13q, w13s = quant.quantize_weight(w13.float())

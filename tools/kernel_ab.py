@@ -1,7 +1,9 @@
-"""Time the port's K2, K4, K5 and K3 from one checkout on the card, under
-chip_smoke.py's yardsticks, to compare two designs within one run.
+"""Time the port's K2, K4, K5, K3, K8, K8u and K9 from one checkout on the
+card, under chip_smoke.py's yardsticks, to compare two designs within one
+run.
 
-  python3 tools/kernel_ab.py --root DIR [--kernels K2,K4,K5,K3] [--tile-rows] [--k5-cluster]
+  python3 tools/kernel_ab.py --root DIR [--kernels K2,K4,K5,K3,K8,K8u,K9] [--tile-rows]
+      [--k5-cluster]
 
 DIR is the root of a checkout of the repo: this one, or an earlier commit
 unpacked with ``git archive`` into a git-ignored directory. Its
@@ -25,6 +27,17 @@ with chip_smoke.py's helpers:
   K3  B 8, T 512, hd 128, chip_smoke.py's bounds: KV 32, R 1 and KV 8, R 4
       over an int8 cache (SDPA on the dequantized bf16 cache and K2 on that
       bf16 cache beside it; K3's device time also by kernel)
+  K8  chip_smoke.py's 1B cases (KV 16, R 1, hd 128, T 512, D 2048): B 1 at
+      bound 300 and B 8 at its ragged bounds, with and without the residual
+      (the unfused K2 + torch.mm + cast + add beside it)
+  K8u the same at pos = bound - 1 (the unfused cache write + K2 + torch.mm
+      + add beside it); its caches' bytes go into its digest
+  K9  the 7B norm + wqkv (bf16 out), wo + residual and norm + lm-head (f32
+      out) at M 1 to 8, and the lm-head at M 64 (the unfused rms_norm + K4
+      + cast, or K4 + cast + add, beside it)
+K8, K8u and K9 also give each kernel's device time and a SHA-256 of their
+output's bytes (``sha256``), so that two checkouts' results can be held
+equal bit for bit.
 ``--tile-rows`` (this checkout only) also times K4's wgmma tile kernel
 with tiles of 128 and of 256 rows (tools/w8_tile_rows.cu) at the 7B
 shapes where w8::launch_tile takes 128. ``--k5-cluster`` (this checkout
@@ -35,6 +48,7 @@ Prints one JSON object a case, each beside the card's nvidia-smi line.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
@@ -227,6 +241,132 @@ def k3_cases(sm, dev):
                    library_device_ms=sm.device_ms_cycle(lib, deq, what="SDPA"))
 
 
+def digest(*tensors):
+    """The first 16 hex digits of a SHA-256 over the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def timed(sm, name, fn, sets, iters, unfused=None):
+    """A case's host clock, device time (all kernels, and by kernel) and,
+    where given, the unfused sequence's host clock and device time."""
+    case = dict(ms=sm.time_ms_cycle(fn, sets, iters),
+                device_ms=sm.device_ms_cycle(fn, sets, what=name),
+                device_by_kernel=device_ms_by_kernel(fn, sets))
+    if unfused is not None:
+        case.update(unfused_ms=sm.time_ms_cycle(unfused, sets, iters),
+                    unfused_device_ms=sm.device_ms_cycle(unfused, sets, what=f"{name} unfused"))
+    return case
+
+
+def k8_cases(sm, dev, upd):
+    """K8 (both bodies) or K8u at chip_smoke.py's 1B cases."""
+    from prego_tpu_torch.ops import decode_attention as da
+    from prego_tpu_torch.ops import decode_attention_wo as dwo
+    from prego_tpu_torch.ops.dense import mm_f32
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    bf16 = torch.bfloat16
+    KV, R, hd, T, D = 16, 1, 128, 512, 2048
+    H = KV * R
+    rn = lambda *shape, scale=1.0: (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf16)
+    for vl in ([300], [0, 512, 1, 77, 255, 256, 300, 511]):
+        B = len(vl)
+        valid = torch.tensor(vl, dtype=torch.int32, device=dev)
+        pos = (valid - 1).clamp(min=0)
+
+        def make():
+            qkv = rn(B, 1, (H + 2 * KV) * hd)  # the new K/V as views, as the model hands them
+            return (rn(B, KV, R, hd), rn(B, KV, T, hd), rn(B, KV, T, hd),
+                    rn(H * hd, D, scale=(H * hd) ** -0.5), rn(B, 1, D),
+                    qkv[..., H * hd : (H + KV) * hd].reshape(B, 1, KV, hd).transpose(1, 2),
+                    qkv[..., (H + KV) * hd :].reshape(B, 1, KV, hd).transpose(1, 2))
+        sets = sm.copies_past_l2(make, 2 * B * KV * T * hd * 2 + H * hd * D * 2)
+        q, k, v, wo, h, k_new, v_new = sets[0]
+
+        def attend(q, k, v, bound):
+            return da.decode_attention(q, k, v, bound).reshape(B, 1, H * hd)
+
+        if upd:
+            def k8u(q, k, v, wo, h, kn, vn):
+                return dwo.decode_attention_wo_res_upd(q, h, kn, vn, k, v, pos, wo)[0]
+
+            def unfused(q, k, v, wo, h, kn, vn):
+                dwo.write_token_kv(kn, vn, k, v, pos)
+                return h + mm_f32(attend(q, k, v, pos + 1), wo).to(h.dtype)
+            ck, cv = k.clone(), v.clone()
+            out = k8u(q, ck, cv, wo, h, k_new, v_new)
+            want, _, _ = dwo.decode_attention_wo_res_upd_reference(
+                q, h, k_new, v_new, k.clone(), v.clone(), pos, wo)
+            err = sm.max_err(out, want)
+            if not err <= sm.TOL["decode_attention_wo_res_upd"]:
+                raise AssertionError(f"K8u B {B}: max_abs_err {err}")
+            yield dict(kernel="K8u", shape=f"B {B} KV {KV} hd {hd} T {T} D {D}",
+                       max_abs_err=err, sha256=digest(out, ck, cv),
+                       **timed(sm, f"K8u B {B}", k8u, sets, 50, unfused))
+            continue
+        for res in (True, False):
+            def k8(q, k, v, wo, h, *_):
+                return dwo.decode_attention_wo(q, k, v, valid, wo, residual=h if res else None)
+
+            def unfused(q, k, v, wo, h, *_):
+                y = mm_f32(attend(q, k, v, valid), wo)
+                return h + y.to(h.dtype) if res else y
+            out = k8(*sets[0])
+            err = sm.max_err(out, dwo.decode_attention_wo_reference(
+                q, k, v, valid, wo, residual=h if res else None))
+            if not err <= sm.TOL["decode_attention_wo"]:
+                raise AssertionError(f"K8 B {B} residual {res}: max_abs_err {err}")
+            yield dict(kernel="K8", shape=f"B {B} KV {KV} hd {hd} T {T} D {D}"
+                       + (" residual" if res else ""), max_abs_err=err, sha256=digest(out),
+                       **timed(sm, f"K8 B {B}{' res' if res else ''}", k8, sets, 50, unfused))
+
+
+def k9_cases(sm, dev):
+    """K9 at chip_smoke.py's 7B decode and prefill cases."""
+    from prego_tpu_torch.ops import fused_dense as fd
+    from prego_tpu_torch.ops import fused_ffn as ffn
+    from prego_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    bf16, eps = torch.bfloat16, 1e-5
+    rn = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=gen) * scale
+    sites = {"wqkv": ("norm", *sm.PROJ_7B["wqkv"], bf16), "wo": ("residual", *sm.PROJ_7B["wo"], bf16),
+             "lm_head": ("norm", *sm.PROJ_7B["lm_head"], torch.float32)}
+    for site, M in [(site, M) for M in range(1, 9) for site in sites] + [("lm_head", 64)]:
+        mode, K, N, out_dtype = sites[site]
+
+        def make():
+            q, s = quant.quantize_weight(rn(K, N, scale=K ** -0.5))
+            return (rn(M, K).to(bf16), q, s, (rn(K, scale=0.1) + 1).to(bf16), rn(M, N).to(bf16))
+        sets = sm.copies_past_l2(make, K * N)
+        if mode == "norm":
+            kw = lambda nw, res: dict(norm_weight=nw, eps=eps, out_dtype=out_dtype)
+
+            def unfused(x, q, s, nw, res):
+                return quant.int8_matmul(ffn.rms_norm(x, nw, eps), q, s).to(out_dtype)
+        else:
+            kw = lambda nw, res: dict(residual=res)
+
+            def unfused(x, q, s, nw, res):
+                return res + quant.int8_matmul(x, q, s).to(bf16)
+
+        def k9(x, q, s, nw, res):
+            return fd.fused_dense_q8(x, q, s, **kw(nw, res))
+        out = k9(*sets[0])
+        x, q, s, nw, res = sets[0]
+        err = sm.max_err(out, fd.fused_dense_q8_reference(x, q, s, **kw(nw, res)))
+        if not err <= sm.TOL["fused_dense_q8"]:
+            raise AssertionError(f"K9 {site} M {M}: max_abs_err {err}")
+        yield dict(kernel="K9", shape=f"{site} ({mode}) M {M}", max_abs_err=err,
+                   sha256=digest(out),
+                   **timed(sm, f"K9 {site} M {M}", k9, sets, 20 if M > 8 else 50, unfused))
+
+
 def tile_rows_cases(sm, dev):
     """K4's tile kernel with tiles of 128 (2 warpgroups) and 256 rows (4)
     where w8::launch_tile takes 128."""
@@ -266,7 +406,8 @@ def tile_rows_cases(sm, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True, help="checkout whose port is timed")
-    ap.add_argument("--kernels", default="K2,K4,K5,K3", help="which kernels' cases, in order")
+    ap.add_argument("--kernels", default="K2,K4,K5,K3,K8,K8u,K9",
+                    help="which kernels' cases, in order")
     ap.add_argument("--tile-rows", action="store_true",
                     help="also time K4's tiles of 128 and 256 rows (this checkout only)")
     ap.add_argument("--k5-cluster", action="store_true",
@@ -284,12 +425,14 @@ def main():
     if Path(prego_tpu_torch.__file__).resolve().parents[1] != root:
         raise AssertionError(f"prego_tpu_torch came from {prego_tpu_torch.__file__}, not {root}")
     sm = load_smoke()
+    sm.build_kernels()  # one nvcc per source, all at once
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = sm.nvidia_smi_line()
     runs = {"K2": lambda: k2_cases(sm, dev), "K4": lambda: k4_cases(sm, dev),
             "K5": lambda: k5_cases(sm, dev, args.k5_cluster),
-            "K3": lambda: k3_cases(sm, dev)}
+            "K3": lambda: k3_cases(sm, dev), "K8": lambda: k8_cases(sm, dev, upd=False),
+            "K8u": lambda: k8_cases(sm, dev, upd=True), "K9": lambda: k9_cases(sm, dev)}
     names = args.kernels.split(",")
     if args.tile_rows:
         runs["K4 tile rows"] = lambda: tile_rows_cases(sm, dev)
