@@ -9,17 +9,18 @@
    for the quantized kernels), timing both with CUDA events, beside its
    roofline bound and, where one PyTorch call computes the same function,
    that call's time; the decode kernels' inputs cycle through copies that
-   pass the L2 cache, and K2's, K3's, K4's, K5's, K8's, K8u's and K9's
-   cases also read each call's device time (the union of its kernels'
-   spans), and their library calls' or unfused sequences', from
+   pass the L2 cache, and K1's, K2's, K3's, K4's, K5's, K8's, K8u's, K9's
+   and K7q's cases also read each call's device time (the union of its
+   kernels' spans), and their library calls' or unfused sequences', from
    torch.profiler (K4 and K5 at decode M 1 and 8, at M 64, 512 and 2048 on
-   the 7B w13, M 256 on wqkv and M 512 on wo). The cuDNN GRU layer is
+   the 7B w13, M 256 on wqkv and M 512 on wo; K1 also at the training
+   shape, B 16 x 128 frames, and per frame). The cuDNN GRU layer is
    timed beside the trainable GRU layer as a yardstick, the bf16 decode
    fusions (K8, K8u, K7) and the int8 ones (K9 in both modes at the 7B
    wqkv, wo and lm-head shapes, K7q at the 7B FFN) beside the unfused
    sequence each replaces, and K3m (K3's int8_mxu mode, which no path
-   runs) beside K3's default mode. K8's, K8u's and K9's cases also log
-   what a call asks of the host: its kernels (the nodes of a captured
+   runs) beside K3's default mode. K8's, K8u's, K9's and K7q's cases also
+   log what a call asks of the host: its kernels (the nodes of a captured
    call) and its allocations.
 2. Checks the port against its f32 CPU path: MiniROAD eval at full width
    on two video prefixes, one MiniROAD train step at full width (K1 + K6,
@@ -99,7 +100,8 @@ KERNEL_INFO = {
     "fused_ffn": ("prego_tpu_torch/csrc/fused_ffn.cu", "prego_tpu/ops/fused_ffn.py:85"),
     "fused_dense_q8": ("prego_tpu_torch/csrc/fused_dense_q8.cu",
                        "prego_tpu/ops/fused_dense.py:83"),
-    "fused_ffn_block_q8": ("prego_tpu_torch/csrc/fused_ffn.cu", "prego_tpu/ops/fused_ffn.py:224"),
+    "fused_ffn_block_q8": ("prego_tpu_torch/csrc/fused_ffn_q8.cu",
+                           "prego_tpu/ops/fused_ffn.py:224"),
     "decode_attention_q8_mxu": ("prego_tpu_torch/csrc/decode_attention_q8.cu",
                                 "prego_tpu/ops/decode_attention.py:1372"),
 }
@@ -383,7 +385,8 @@ def check_kernels(dev):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(
             dev, dtype)
 
-    # K1 at the recognition eval shapes: 64 videos x 256 frames, E 2048, H 1024
+    # K1 at the recognition eval shapes: 64 videos x 256 frames, E 2048, H
+    # 1024; and at the training shape (16 windows of 128 frames)
     B, T, E, H = 64, 256, 2048, 1024
     x = mk(1.0, B, T, E, dtype=torch.float32)
     w_ih, w_hh = mk(E ** -0.5, E, 3 * H, dtype=torch.float32), mk(H ** -0.5, H, 3 * H)
@@ -392,14 +395,30 @@ def check_kernels(dev):
     h0 = torch.zeros(B, H, device=dev)
     hs, hT = gru_cuda.gru_recurrence(xg, h0, w_hh, b_hh)
     ref_hs, ref_hT = gru_cuda.gru_recurrence_reference(xg, h0, w_hh, b_hh)
+    k1 = lambda *a: gru_cuda.gru_recurrence(*a)
+    xg16 = xg[:128, :16].contiguous()
+    h016 = torch.zeros(16, H, device=dev)
+    train_err = max(max_err(a, b) for a, b in zip(
+        gru_cuda.gru_recurrence(xg16, h016, w_hh, b_hh),
+        gru_cuda.gru_recurrence_reference(xg16, h016, w_hh, b_hh)))
     rows["gru_recurrence"] = dict(
-        max_abs_err=max(max_err(hs, ref_hs), max_err(hT, ref_hT)),
+        max_abs_err=max(max_err(hs, ref_hs), max_err(hT, ref_hT), train_err),
         ms=time_ms(lambda: gru_cuda.gru_recurrence(xg, h0, w_hh, b_hh), 10),
+        device_ms=device_ms_cycle(k1, [(xg, h0, w_hh, b_hh)], iters=5, what="K1 B 64 T 256"),
         plain_ms=time_ms(lambda: gru_cuda.gru_recurrence_reference(xg, h0, w_hh, b_hh), 3),
         **bound(2 * B * H * 3 * H * T, nbytes(xg, h0, w_hh, b_hh, hs, hT)),
         library_ms=None,  # no one PyTorch call is the recurrence alone: see the cuDNN layer
+        train_shape_ms=time_ms(lambda: gru_cuda.gru_recurrence(xg16, h016, w_hh, b_hh), 20),
+        train_shape_device_ms=device_ms_cycle(k1, [(xg16, h016, w_hh, b_hh)], iters=10,
+                                              what="K1 B 16 T 128"),
     )
-    log_case("gru_recurrence", f"B={B} T={T} H={H}", rows["gru_recurrence"])
+    row = rows["gru_recurrence"]
+    row["us_per_frame"] = row["ms"] / T * 1e3
+    row["train_shape_us_per_frame"] = row["train_shape_ms"] / 128 * 1e3
+    log_case("gru_recurrence", f"B={B} T={T} H={H}", row)
+    log(f"  device {fmt_ms(row['device_ms'])} ms, {row['us_per_frame']:.3f} us a frame (host "
+        f"clock); the training shape B=16 T=128: {row['train_shape_ms']:.4f} ms, device "
+        f"{fmt_ms(row['train_shape_device_ms'])}, {row['train_shape_us_per_frame']:.3f} us a frame")
 
     # K6 at the training shape (T 128, B 16) and at B 64: xg, h_prev, dhs
     # and W_hh bf16 as the trainable layer streams them
@@ -888,15 +907,20 @@ def check_q8_fused_kernels(dev):
         out = k7q(*sets[0])
         case = dict(
             M=M, max_abs_err=max_err(out, plain(*sets[0])),
-            ms=time_ms_cycle(k7q, sets, 50), plain_ms=time_ms_cycle(plain, sets, 50),
+            ms=time_ms_cycle(k7q, sets, 50),
+            device_ms=device_ms_cycle(k7q, sets, what=f"K7q M {M}"),
+            plain_ms=time_ms_cycle(plain, sets, 50),
             **bound(2 * M * D * 3 * F, nbytes(*sets[0], out)),
             library_ms=None,  # PyTorch has no fused norm + SwiGLU FFN call
             unfused_ms=time_ms_cycle(unfused, sets, 50),
+            unfused_device_ms=device_ms_cycle(unfused, sets, what=f"K7q M {M} unfused"),
+            per_call=launches_and_allocations(lambda: k7q(*sets[0]), dev),
         )
         cases["fused_ffn_block_q8"].append(case)
         log_case("fused_ffn_block_q8", f"M={M} D={D} F={F}", case)
-        log(f"  the unfused int8 sequence (rms_norm, K4, silu * up, K4, add) "
-            f"{case['unfused_ms']:.4f} ms")
+        log(f"  device {fmt_ms(case['device_ms'])} ms; the unfused int8 sequence (rms_norm, K4, "
+            f"silu * up, K4, add) {case['unfused_ms']:.4f}, device "
+            f"{fmt_ms(case['unfused_device_ms'])}; a call: {case['per_call']}")
 
     # K3m: K3's cases (B 8, hd 128, T 512, the same ragged bounds); the
     # library call runs on the dequantized bf16 cache, K3 on the int8 one
@@ -933,6 +957,8 @@ def check_q8_fused_kernels(dev):
         log(f"  K3's default mode on the same int8 cache: {case['k3_default_ms']:.4f} ms")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    q8_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "unfused_ms",
+               "unfused_device_ms", "per_call")
     # K9's row: a 7B decode step's three call shapes at M 1, summed (32
     # layers run the first two, the head the third)
     step = [c for c in cases["fused_dense_q8"] if c["M"] == 1]
@@ -944,8 +970,8 @@ def check_q8_fused_kernels(dev):
     for key in ("device_ms", "unfused_device_ms"):
         vals = [c[key] for c in step]
         rows["fused_dense_q8"][key] = None if None in vals else sum(vals)
-    for name in ("fused_ffn_block_q8", "decode_attention_q8_mxu"):
-        rows[name] = {k: cases[name][0][k] for k in keys}
+    rows["fused_ffn_block_q8"] = {k: cases["fused_ffn_block_q8"][0][k] for k in q8_keys}
+    rows["decode_attention_q8_mxu"] = {k: cases["decode_attention_q8_mxu"][0][k] for k in keys}
     for name, cs in cases.items():
         rows[name]["max_abs_err"] = max(c["max_abs_err"] for c in cs)
         if not rows[name]["max_abs_err"] <= TOL[name]:

@@ -1,6 +1,7 @@
 // Hopper's asynchronous copy and barrier primitives, as inline PTX, for
 // the kernels that use them (K2 in decode_attention.cu, K4 in
-// w8_matmul.cuh): mbarriers, bulk and tensor (TMA) copies, cp.async with
+// w8_matmul.cuh, K7q in fused_ffn_q8.cu, K1 in gru.cu): mbarriers, bulk
+// copies (also multicast into a cluster) and tensor (TMA) copies, cp.async with
 // an mbarrier arrival, the async-proxy fence, named barriers, and wgmma's
 // shared-memory descriptors and fences; programmatic dependent launch and
 // an L2 prefetch (K8 in decode_attention_wo.cu, K9 in fused_dense_q8.cu);
@@ -74,6 +75,18 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
         ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) from global memory into the shared memory of
+// every CTA of the cluster named in `mask`, at the same offset `dst` in each,
+// each copy completing on that CTA's own barrier at `bar` (K1 in gru.cu)
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar, uint16_t mask) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask)
         : "memory");
 }
 

@@ -20,14 +20,20 @@ from typing import Dict, Tuple
 
 import torch
 
-from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, check_cuda_tensor, stream_ptr
+from prego_tpu_torch.ops._cuda import (
+    CudaKernel, Workspace, c_int, c_ptr, check_cuda_tensor, stream_ptr,
+)
 from prego_tpu_torch.ops.dense import mm_f32
 
 KERNEL = CudaKernel(
     "gru",
     "gru.cu",
-    {"prego_gru_recurrence": [c_ptr] * 7 + [c_int] * 3 + [c_ptr]},
+    {"prego_gru_recurrence": [c_ptr] * 8 + [c_int] * 3 + [c_ptr]},
 )
+# the kernel's exchange buffer, h of two frames (2, B, H) bf16, and each
+# batch group's frame and exit counts (zero, and left zero), kept between
+# calls
+WORKSPACE = Workspace((torch.bfloat16, torch.int32), zero=(False, True))
 
 
 def gru_recurrence_reference(
@@ -71,13 +77,14 @@ def gru_recurrence(
     check_cuda_tensor("b_hh", b_hh, torch.float32, (threeH,))
     hs = torch.empty(T, B, H, dtype=torch.bfloat16, device=xg_tm.device)
     hT = torch.empty(B, H, dtype=torch.float32, device=xg_tm.device)
-    hbuf = torch.empty(2, B, H, dtype=torch.bfloat16, device=xg_tm.device)
+    stream = stream_ptr(xg_tm.device)
+    hbuf, counters = WORKSPACE.get(xg_tm.device, stream, 2 * B * H, 4)
     KERNEL.launches += 1
     KERNEL.call(
         "prego_gru_recurrence",
         xg_tm.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-        hs.data_ptr(), hT.data_ptr(), hbuf.data_ptr(),
-        T, B, H, stream_ptr(xg_tm.device),
+        hs.data_ptr(), hT.data_ptr(), hbuf.data_ptr(), counters.data_ptr(),
+        T, B, H, stream,
     )
     return hs, hT
 

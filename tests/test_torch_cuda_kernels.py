@@ -80,6 +80,33 @@ def test_gru_kernel_matches_plain(cuda_device, T, B, H):
     torch.testing.assert_close(hT, want_hT, **GRU_TOL)
 
 
+@pytest.mark.parametrize("H", [16, 48, 1024])
+@pytest.mark.parametrize("T", [0, 1, 128])
+@pytest.mark.parametrize("B", [1, 16, 17, 64, 100])
+def test_gru_kernel_at_its_edges(cuda_device, B, T, H):
+    """K1 with no frame (hT is h0), one frame and 128; one row, B 17 (a
+    ragged row tile) and B 100 (two tiles of rows a frame); H 16 and 48
+    (clusters of 2) and 1024 (128 CTAs). hT is the last frame's state, a
+    second call gives the same bits, and the workspace's counter is zero."""
+    xg, h0, w, b = _gru_inputs(cuda_device, T, B, H, seed=B + T + H)
+    hs, hT = gru_cuda.gru_recurrence(xg, h0, w, b)
+    torch.cuda.synchronize()
+    assert hs.shape == (T, B, H) and hT.shape == (B, H)
+    want_hs, want_hT = gru_cuda.gru_recurrence_reference(xg, h0, w, b)
+    torch.testing.assert_close(hs.float(), want_hs.float(), **GRU_TOL)
+    torch.testing.assert_close(hT, want_hT, **GRU_TOL)
+    if T:
+        assert torch.equal(hT.to(torch.bfloat16), hs[-1])
+    else:
+        assert torch.equal(hT, h0)
+    again = gru_cuda.gru_recurrence(xg, h0, w, b)
+    assert torch.equal(again[0], hs) and torch.equal(again[1], hT)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    _, counter = gru_cuda.WORKSPACE.held[(cuda_device.index, stream)][0]
+    assert int(counter.abs().sum()) == 0
+
+
 def _attn_inputs(device, B, KV, R, T, hd, seed=0):
     rng = np.random.default_rng(seed)
     mk = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(
@@ -876,14 +903,81 @@ def _ffn_q8_inputs(device, M, D, F, seed=0):
                                    (12, 512, 1000), (16, 4096, 11008)])  # in calls of 8 rows
 def test_fused_ffn_block_q8_kernel_matches_plain(cuda_device, M, D, F):
     args = _ffn_q8_inputs(cuda_device, M, D, F, seed=M)
-    before = ffn.KERNEL_Q8.launches
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    # F 1000 takes the first design (TMA cannot start a box at column 1000)
+    kernel = ffn.KERNEL_Q8 if ffn.q8_splits(D, F, sms) else ffn.KERNEL_Q8_FFMA
+    before = kernel.launches
     out = ffn.fused_ffn_block_q8(*args, 1e-5)
     torch.cuda.synchronize()
-    assert ffn.KERNEL_Q8.launches == before + (M + 7) // 8
+    assert kernel.launches == before + (M + 7) // 8
     assert out.dtype == torch.bfloat16 and out.shape == (M, D)
     want = ffn.fused_ffn_block_q8_reference(*args, 1e-5)
     torch.testing.assert_close(out.float(), want.float(), **FFN_TOL)
     assert torch.equal(ffn.fused_ffn_block_q8(*args, 1e-5), out)  # the same bits again
+
+
+@pytest.mark.parametrize("M", range(1, 9))
+def test_fused_ffn_block_q8_at_every_decode_row_count(cuda_device, M):
+    """K7q at the 7B FFN (D 4096, F 11008) at each row count a call takes:
+    csrc/fused_ffn_q8.cu's kernel, the same bits twice."""
+    args = _ffn_q8_inputs(cuda_device, M, 4096, 11008, seed=40 + M)
+    before = ffn.KERNEL_Q8.launches, ffn.KERNEL_Q8_FFMA.launches
+    out = ffn.fused_ffn_block_q8(*args, 1e-5)
+    torch.cuda.synchronize()
+    assert (ffn.KERNEL_Q8.launches, ffn.KERNEL_Q8_FFMA.launches) == (before[0] + 1, before[1])
+    want = ffn.fused_ffn_block_q8_reference(*args, 1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **FFN_TOL)
+    assert torch.equal(ffn.fused_ffn_block_q8(*args, 1e-5), out)
+
+
+def test_fused_ffn_block_q8_first_design_where_tma_cannot_go(cuda_device):
+    """Where TMA cannot take the weights (F 172: w13's rows of 344 bytes,
+    no multiple of 16) K7q runs its first design, K7a's kernels over int8."""
+    args = _ffn_q8_inputs(cuda_device, 3, 64, 172, seed=3)
+    before = ffn.KERNEL_Q8.launches, ffn.KERNEL_Q8_FFMA.launches
+    out = ffn.fused_ffn_block_q8(*args, 1e-5)
+    torch.cuda.synchronize()
+    assert (ffn.KERNEL_Q8.launches, ffn.KERNEL_Q8_FFMA.launches) == (before[0], before[1] + 1)
+    want = ffn.fused_ffn_block_q8_reference(*args, 1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **FFN_TOL)
+
+
+def test_fused_ffn_block_q8_launches_allocations_and_graph_replay(cuda_device):
+    """K7q at the 7B FFN: one kernel a call and one allocation, its output;
+    a call captured at M 1, replayed after an eager M 8 call has outgrown
+    the workspace the graph holds, with new inputs in the captured buffers,
+    gives the eager M 1 bits; the counters are left zero."""
+    stream = torch.cuda.Stream(cuda_device)
+    small = _ffn_q8_inputs(cuda_device, 1, 4096, 11008, seed=1)
+    large = [small[0].new_empty(8, 4096).copy_(torch.randn(8, 4096)), *small[1:]]
+    fn = lambda a=small: ffn.fused_ffn_block_q8(*a, 1e-5)
+    ffn.WORKSPACE_Q8.held.clear()  # the warm call below makes this stream's set at M 1
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(10):
+            fn()
+        stream.synchronize()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 10
+    assert _graph_node_types(fn, cuda_device) == [0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fn()
+    retired = len(ffn.WORKSPACE_Q8.retired)
+    with torch.cuda.stream(stream):
+        ffn.fused_ffn_block_q8(*large, 1e-5)  # a larger workspace; the captured set is kept
+    stream.synchronize()
+    assert len(ffn.WORKSPACE_Q8.retired) == retired + 1
+    small[0].copy_(small[0][..., torch.randperm(4096, device=cuda_device)].clone())
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn())
+    for bufs, _, _ in ffn.WORKSPACE_Q8.held.values():
+        assert int(bufs[3].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("B,KV,R,T,hd", [(2, 2, 1, 128, 128), (3, 4, 2, 192, 64),

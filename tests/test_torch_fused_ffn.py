@@ -148,7 +148,32 @@ def test_q8_block_is_the_unfused_int8_sequence_in_bf16():
 
 def test_q8_block_takes_plain_version_on_cpu():
     args = [t(a) for a in _q8_inputs(2, 2, 64, 128)]
-    before = port.KERNEL_Q8.launches
+    before = port.KERNEL_Q8.launches, port.KERNEL_Q8_FFMA.launches
     out = port.fused_ffn_block_q8(*args, EPS)
-    assert port.KERNEL_Q8.launches == before
+    assert (port.KERNEL_Q8.launches, port.KERNEL_Q8_FFMA.launches) == before
     assert torch.equal(out, port.fused_ffn_block_q8_reference(*args, EPS))
+
+
+@pytest.mark.parametrize("D,F,sms,want", [
+    (4096, 11008, 132, (3, 16)),  # 7B: 43 x 3 up blocks, 8 x 16 down blocks
+    (2048, 5632, 132, (6, 33)),   # 1B-class widths
+    (64, 176, 132, (2, 6)),       # fewer rows than SMs: a split a stage of 32 rows
+    (512, 1024, 132, (16, 32)),
+    (512, 1000, 132, None),       # the up columns start at column 1000: no 16-byte boundary
+    (5120, 13824, 132, (2, 13)),  # 13B widths: 54 column tiles, two splits of D
+    (8192, 28672, 132, None),     # one split of D would stage 8192 rows: past shared memory
+    (4104, 11008, 132, None),     # D not a multiple of 16: rows of w2 TMA cannot take
+    (4096, 11004, 132, None),     # F not a multiple of 8: rows of w13 TMA cannot take
+    (4096, 11008, 32, None),      # 43 column tiles of w13 on 32 SMs: more than one a block
+])
+def test_q8_splits_fill_the_card_once(D, F, sms, want):
+    """K7q's splits: each launch about one block an SM, every split at
+    least one stage of rows; None where the redesign does not take the
+    shape (the wrapper then runs the first design)."""
+    got = port.q8_splits(D, F, sms)
+    assert got == want
+    if got is not None:
+        P, S = got
+        assert -(-F // 256) * P <= max(sms, -(-F // 256))
+        assert -(-D // 512) * S <= max(sms, -(-D // 512))
+        assert P <= -(-D // 32) and S <= -(-F // 32)

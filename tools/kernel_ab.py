@@ -1,9 +1,9 @@
-"""Time the port's K2, K4, K5, K3, K8, K8u and K9 from one checkout on the
-card, under chip_smoke.py's yardsticks, to compare two designs within one
-run.
+"""Time the port's K2, K4, K5, K3, K8, K8u, K9, K7q, K7a, K7 and K1 from one
+checkout on the card, under chip_smoke.py's yardsticks, to compare two
+designs within one run.
 
-  python3 tools/kernel_ab.py --root DIR [--kernels K2,K4,K5,K3,K8,K8u,K9] [--tile-rows]
-      [--k5-cluster]
+  python3 tools/kernel_ab.py --root DIR [--kernels K2,K4,K5,K3,K8,K8u,K9,K7q,K7a,K7,K1]
+      [--tile-rows] [--k5-cluster] [--k1-split] [--no-check]
 
 DIR is the root of a checkout of the repo: this one, or an earlier commit
 unpacked with ``git archive`` into a git-ignored directory. Its
@@ -35,14 +35,28 @@ with chip_smoke.py's helpers:
   K9  the 7B norm + wqkv (bf16 out), wo + residual and norm + lm-head (f32
       out) at M 1 to 8, and the lm-head at M 64 (the unfused rms_norm + K4
       + cast, or K4 + cast + add, beside it)
-K8, K8u and K9 also give each kernel's device time and a SHA-256 of their
-output's bytes (``sha256``), so that two checkouts' results can be held
-equal bit for bit.
+  K7q the 7B int8 FFN sub-layer (D 4096, F 11008) at M 1 to 8 (the unfused
+      rms_norm + K4 + silu * up + K4 + add beside it)
+  K7a the 7B bf16 FFN sub-layer at M 1 and 8; K7 the 1B FFN (D 2048, F
+      5632) at M 1 and 8 (their designs are not to move: read beside K7q's)
+  K1  the GRU recurrence at H 1024: B 64, T 256 (recognition eval), B 16,
+      T 128 (training) and B 128, T 512; us a frame beside the device time
+K8, K8u, K9, K7q, K7a, K7 and K1 also give each kernel's device time and a
+SHA-256 of their output's bytes (``sha256``), so that two checkouts'
+results can be held equal bit for bit.
 ``--tile-rows`` (this checkout only) also times K4's wgmma tile kernel
 with tiles of 128 and of 256 rows (tools/w8_tile_rows.cu) at the 7B
 shapes where w8::launch_tile takes 128. ``--k5-cluster`` (this checkout
 only) also times K5's streaming GEMV with its splits summed in a thread
 block cluster (tools/w8a8_gemv_cluster.cu) at the decode shapes.
+``--k1-split`` also runs K1's design of dc1e0f6 with clock64() stamps
+(tools/gru_split.cu) at K1's three shapes, for the split of a frame
+between the copy of h, the product, the gate math and the grid barrier,
+and times T empty exchanges over the same 128 CTAs, by grid barrier and by
+K1's split arrive and wait: the chain floor of a frame. ``--no-check``
+times K7q's and K1's cases without holding them against their plain
+versions: for copies of a tree with a part of a kernel taken out, to read
+what that part costs.
 
 Prints one JSON object a case, each beside the card's nvidia-smi line.
 """
@@ -57,6 +71,7 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+CHECK = True  # hold K7q's and K1's cases against their plain versions (--no-check: not)
 
 
 def load_smoke():
@@ -367,6 +382,149 @@ def k9_cases(sm, dev):
                    **timed(sm, f"K9 {site} M {M}", k9, sets, 20 if M > 8 else 50, unfused))
 
 
+def k7q_cases(sm, dev):
+    """K7q at the 7B FFN, M 1 to 8; the weights' two sets shared by every M."""
+    from prego_tpu_torch.ops import fused_ffn as ffn
+    from prego_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    bf16, eps, D, F = torch.bfloat16, 1e-5, 4096, 11008
+    rn = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=gen) * scale
+    weights = sm.copies_past_l2(lambda: (
+        (rn(D, scale=0.1) + 1).to(bf16),
+        *quant.quantize_weight(rn(D, 2 * F, scale=D ** -0.5)),
+        *quant.quantize_weight(rn(F, D, scale=F ** -0.5))), 3 * D * F)
+
+    def unfused(h, nw, w13q, w13s, w2q, w2s):
+        g13 = quant.int8_matmul(ffn.rms_norm(h, nw, eps), w13q, w13s)
+        act = (torch.nn.functional.silu(g13[:, :F]) * g13[:, F:]).to(bf16)
+        return h + quant.int8_matmul(act, w2q, w2s).to(bf16)
+
+    def k7q(*a):
+        return ffn.fused_ffn_block_q8(*a, eps)
+    for M in range(1, 9):
+        sets = [(rn(M, D).to(bf16), *w) for w in weights]
+        out = k7q(*sets[0])
+        err = sm.max_err(out, ffn.fused_ffn_block_q8_reference(*sets[0], eps))
+        if CHECK and not err <= sm.TOL["fused_ffn_block_q8"]:
+            raise AssertionError(f"K7q M {M}: max_abs_err {err}")
+        if CHECK and not torch.equal(k7q(*sets[0]), out):
+            raise AssertionError(f"K7q M {M}: a second call gave other bits")
+        yield dict(kernel="K7q", shape=f"M {M} D {D} F {F}", max_abs_err=err,
+                   sha256=digest(out), **timed(sm, f"K7q M {M}", k7q, sets, 50, unfused))
+
+
+def k7_cases(sm, dev, block):
+    """K7a (block) at the 7B FFN or K7 at the 1B FFN, M 1 and 8."""
+    from prego_tpu_torch.ops import fused_ffn as ffn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    bf16, eps = torch.bfloat16, 1e-5
+    D, F = (4096, 11008) if block else (2048, 5632)
+    rn = lambda *shape, scale=1.0: (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf16)
+    weights = sm.copies_past_l2(lambda: (rn(D, scale=0.1) + 1, rn(D, 2 * F, scale=D ** -0.5),
+                                         rn(F, D, scale=F ** -0.5)), 6 * D * F)
+    name = "K7a" if block else "K7"
+    for M in (1, 8):
+        sets = [(rn(M, D), *w) for w in weights]
+        if block:
+            fn = lambda h, nw, w13, w2: ffn.fused_ffn_block(h, nw, w13, w2, eps)
+            ref = lambda h, nw, w13, w2: ffn.fused_ffn_block_reference(h, nw, w13, w2, eps)
+        else:
+            fn = lambda h, nw, w13, w2: ffn.fused_ffn(h, w13, w2)
+            ref = lambda h, nw, w13, w2: ffn.fused_ffn_reference(h, w13, w2)
+        out = fn(*sets[0])
+        tol = sm.TOL["fused_ffn_block" if block else "fused_ffn"]
+        err = sm.max_err(out, ref(*sets[0]))
+        if not err <= tol:
+            raise AssertionError(f"{name} M {M}: max_abs_err {err}")
+        yield dict(kernel=name, shape=f"M {M} D {D} F {F}", max_abs_err=err,
+                   sha256=digest(out), **timed(sm, f"{name} M {M}", fn, sets, 50))
+
+
+K1_SHAPES = ((64, 256), (16, 128), (128, 512))  # (B, T) at H 1024
+
+
+def k1_inputs(dev, B, T, H, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k = H ** -0.5
+    xg = torch.randn(T, B, 3 * H, device=dev, generator=gen).to(torch.bfloat16)
+    h0 = torch.randn(B, H, device=dev, generator=gen) * 0.5
+    w = ((torch.rand(H, 3 * H, device=dev, generator=gen) * 2 - 1) * k).to(torch.bfloat16)
+    b = (torch.rand(3 * H, device=dev, generator=gen) * 2 - 1) * k
+    return xg, h0, w, b
+
+
+def k1_cases(sm, dev):
+    """K1 at H 1024 and K1_SHAPES; one input set (W_hh is read once a call
+    and stays resident, so L2 does not flatter the rest)."""
+    from prego_tpu_torch.ops import gru_cuda
+
+    H = 1024
+    for B, T in K1_SHAPES:
+        sets = [k1_inputs(dev, B, T, H, seed=B + T)]
+        hs, hT = gru_cuda.gru_recurrence(*sets[0])
+        ref_hs, ref_hT = gru_cuda.gru_recurrence_reference(*sets[0])
+        err = max(sm.max_err(hs, ref_hs), sm.max_err(hT, ref_hT))
+        if CHECK and not err <= sm.TOL["gru_recurrence"]:
+            raise AssertionError(f"K1 B {B} T {T}: max_abs_err {err}")
+        again = gru_cuda.gru_recurrence(*sets[0])
+        if CHECK and not (torch.equal(again[0], hs) and torch.equal(again[1], hT)):
+            raise AssertionError(f"K1 B {B} T {T}: a second call gave other bits")
+        case = dict(kernel="K1", shape=f"B {B} T {T} H {H}", max_abs_err=err,
+                    sha256=digest(hs, hT), **timed(sm, f"K1 B {B} T {T}", gru_cuda.gru_recurrence,
+                                                   sets, 10))
+        if case["device_ms"] is not None:
+            case["device_us_per_frame"] = case["device_ms"] / T * 1e3
+        case["us_per_frame"] = case["ms"] / T * 1e3
+        yield case
+
+
+def k1_split_cases(sm, dev):
+    """K1's design of dc1e0f6 with phase stamps, and T empty exchanges over
+    its 128 CTAs (tools/gru_split.cu)."""
+    from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, stream_ptr
+
+    kernel = CudaKernel("gru_split", str(REPO / "tools" / "gru_split.cu"),
+                        {"prego_gru_split": [c_ptr] * 8 + [c_int] * 3 + [c_ptr],
+                         "prego_gru_empty_round": [c_ptr] + [c_int] * 3 + [c_ptr]})
+    H = 1024
+    grid = H // 8
+    phases = ("copy_h", "product", "gate_math", "grid_barrier")
+    for B, T in K1_SHAPES:
+        xg, h0, w, b = k1_inputs(dev, B, T, H, seed=B + T)
+        hs = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
+        hT = torch.empty(B, H, device=dev)
+        hbuf = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)
+        stamps = torch.zeros(grid, 4, dtype=torch.int64, device=dev)
+
+        def split():
+            kernel.call("prego_gru_split", xg.data_ptr(), h0.data_ptr(), w.data_ptr(),
+                        b.data_ptr(), hs.data_ptr(), hT.data_ptr(), hbuf.data_ptr(),
+                        stamps.data_ptr(), T, B, H, stream_ptr(dev))
+        ms = sm.time_ms(split, 5)
+        cycles = stamps.double().mean(0) / T  # a frame's cycles in each phase, mean over CTAs
+        frame_us = ms / T * 1e3
+        share = cycles / cycles.sum()
+        counter = torch.zeros(2, dtype=torch.int32, device=dev)
+        rounds = {}
+        for mode, name in ((0, "grid_sync"), (1, "arrive_wait")):
+            def empty():
+                kernel.call("prego_gru_empty_round", counter.data_ptr(), T, grid, mode,
+                            stream_ptr(dev))
+            rounds[f"{name}_us_per_round"] = sm.time_ms(empty, 5) / T * 1e3
+        if int(counter.abs().sum()) != 0:
+            raise AssertionError("the empty rounds left their counter nonzero")
+        yield dict(kernel="K1 split (dc1e0f6's design)", shape=f"B {B} T {T} H {H}",
+                   us_per_frame=frame_us,
+                   cycles_per_frame={p: float(c) for p, c in zip(phases, cycles)},
+                   us_per_frame_by_phase={p: float(s) * frame_us for p, s in zip(phases, share)},
+                   **rounds)
+
+
 def tile_rows_cases(sm, dev):
     """K4's tile kernel with tiles of 128 (2 warpgroups) and 256 rows (4)
     where w8::launch_tile takes 128."""
@@ -406,13 +564,19 @@ def tile_rows_cases(sm, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True, help="checkout whose port is timed")
-    ap.add_argument("--kernels", default="K2,K4,K5,K3,K8,K8u,K9",
+    ap.add_argument("--kernels", default="K2,K4,K5,K3,K8,K8u,K9,K7q,K7a,K7,K1",
                     help="which kernels' cases, in order")
     ap.add_argument("--tile-rows", action="store_true",
                     help="also time K4's tiles of 128 and 256 rows (this checkout only)")
     ap.add_argument("--k5-cluster", action="store_true",
                     help="also time K5's GEMV with a cluster reduce (this checkout only)")
+    ap.add_argument("--k1-split", action="store_true",
+                    help="also split a frame of dc1e0f6's K1 by phase, and time empty exchanges")
+    ap.add_argument("--no-check", action="store_true",
+                    help="time K7q's and K1's cases without holding them to their plain versions")
     args = ap.parse_args()
+    global CHECK
+    CHECK = not args.no_check
     root = args.root.resolve()
     if (args.tile_rows or args.k5_cluster) and root != REPO:
         ap.error("--tile-rows and --k5-cluster time this checkout's kernels: --root must be it")
@@ -432,11 +596,16 @@ def main():
     runs = {"K2": lambda: k2_cases(sm, dev), "K4": lambda: k4_cases(sm, dev),
             "K5": lambda: k5_cases(sm, dev, args.k5_cluster),
             "K3": lambda: k3_cases(sm, dev), "K8": lambda: k8_cases(sm, dev, upd=False),
-            "K8u": lambda: k8_cases(sm, dev, upd=True), "K9": lambda: k9_cases(sm, dev)}
+            "K8u": lambda: k8_cases(sm, dev, upd=True), "K9": lambda: k9_cases(sm, dev),
+            "K7q": lambda: k7q_cases(sm, dev), "K7a": lambda: k7_cases(sm, dev, block=True),
+            "K7": lambda: k7_cases(sm, dev, block=False), "K1": lambda: k1_cases(sm, dev)}
     names = args.kernels.split(",")
     if args.tile_rows:
         runs["K4 tile rows"] = lambda: tile_rows_cases(sm, dev)
         names.append("K4 tile rows")
+    if args.k1_split:
+        runs["K1 split"] = lambda: k1_split_cases(sm, dev)
+        names.append("K1 split")
     for name in names:
         for case in runs[name]():
             print(json.dumps(dict(root=str(args.root), card=card, **case)), flush=True)
