@@ -5,12 +5,15 @@
 // an mbarrier arrival, the async-proxy fence, named barriers, and wgmma's
 // shared-memory descriptors and fences; programmatic dependent launch and
 // an L2 prefetch (K8 in decode_attention_wo.cu, K9 in fused_dense_q8.cu);
-// and the device's SM count, which sizes their grids. Addresses of shared
-// memory are 32-bit shared-window addresses (smem_u32).
+// and the device's SM count, which sizes their grids; on the host, the
+// driver's tensor-map encoder and a kernel's dynamic shared memory allowance
+// (K4, K5, K7q and K7). Addresses of shared memory are 32-bit shared-window
+// addresses (smem_u32).
 #pragma once
 
 #include <stdint.h>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace hopper {
@@ -27,6 +30,47 @@ inline int num_sms() {
         return count;
     }();
     return n;
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime: no
+// link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// the dynamic shared memory a kernel may have: the card's opt-in limit less
+// its static shared memory, allowed; negative if that failed
+template <typename Kernel>
+int allow_smem(Kernel kernel) {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes fa;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess ||
+        cudaFuncGetAttributes(&fa, kernel) != cudaSuccess)
+        return -1;
+    const int bytes = optin - static_cast<int>(fa.sharedSizeBytes);
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
+                   cudaSuccess
+               ? bytes : -1;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -469,30 +469,6 @@ __global__ void __launch_bounds__(TileShape<kWG>::kThreads) w8_wgmma_kernel(
     }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime: no
-// link against libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-    }();
-    return fn;
-}
-
 template <int kWG>
 cudaError_t launch_wgmma(const void* x, const void* q, const void* s, void* out, int M, int K,
                          int N, cudaStream_t stream) {
@@ -500,7 +476,7 @@ cudaError_t launch_wgmma(const void* x, const void* q, const void* s, void* out,
     static const cudaError_t attr = cudaFuncSetAttribute(
         w8_wgmma_kernel<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::kSmem);
     if (attr != cudaSuccess) return attr;
-    const EncodeTiled encode = encode_tiled();
+    const hopper::EncodeTiled encode = hopper::encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
     const cuuint32_t steps[2] = {1, 1};
     CUtensorMap tmap_x, tmap_q;

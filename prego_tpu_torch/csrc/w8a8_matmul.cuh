@@ -404,7 +404,7 @@ cudaError_t launch_wgmma(const void* xq, const void* x_scale, const void* q, con
     static const cudaError_t attr = cudaFuncSetAttribute(
         w8a8_wgmma_kernel<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::kSmem);
     if (attr != cudaSuccess) return attr;
-    const w8::EncodeTiled encode = w8::encode_tiled();
+    const hopper::EncodeTiled encode = hopper::encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
     const cuuint32_t steps[2] = {1, 1};
     CUtensorMap tmap_x, tmap_q;

@@ -22,10 +22,10 @@ takes up to 8 decode rows a call, more go in calls of 8); on a CPU tensor
 they run ``fused_ffn_block_reference``, the unfused op sequence
 ``rms_norm -> feed_forward -> + h``, ``fused_ffn_reference`` and
 ``fused_ffn_block_q8_reference``. K7q's kernel is ``csrc/fused_ffn_q8.cu``
-(one persistent launch, a TMA ring and tensor-core products, its scratch in
-a persistent workspace) where TMA can take the weights (D and F multiples
-of 16); other shapes take the first design, K7a's kernels over int8 in
-``csrc/fused_ffn.cu``.
+and K7's ``csrc/fused_ffn_bf16.cu`` (each one persistent launch, a TMA ring
+and tensor-core products, its scratch in a persistent workspace) where TMA
+can take the weights (D and F multiples of 16); other shapes take their
+first design, K7a's kernels (over int8 for K7q) in ``csrc/fused_ffn.cu``.
 """
 
 from __future__ import annotations
@@ -44,30 +44,36 @@ KERNEL = CudaKernel(
     "fused_ffn.cu",
     {"prego_fused_ffn_block": [c_ptr] * 8 + [c_int] * 4 + [c_float, c_ptr]},
 )
-# K7 (and K7q's first design, below) live in K7a's library; their own
-# entries keep their own launch counts
 KERNEL_FFN = CudaKernel(
-    "fused_ffn", "fused_ffn.cu", {"prego_fused_ffn": [c_ptr] * 6 + [c_int] * 4 + [c_ptr]},
+    "fused_ffn_bf16",
+    "fused_ffn_bf16.cu",
+    {"prego_fused_ffn_tma": [c_ptr] * 8 + [c_int] * 5 + [c_ptr]},
 )
 KERNEL_Q8 = CudaKernel(
     "fused_ffn_q8",
     "fused_ffn_q8.cu",
     {"prego_fused_ffn_block_q8": [c_ptr] * 11 + [c_int] * 5 + [c_float, c_ptr]},
 )
-# K7q's first design, K7a's kernels over int8, for the shapes whose weight
-# rows TMA cannot take
+# K7's and K7q's first designs live in K7a's library, for the shapes whose
+# weight rows TMA cannot take; their own entries keep their own launch counts
+KERNEL_FFN_FFMA = CudaKernel(
+    "fused_ffn", "fused_ffn.cu", {"prego_fused_ffn": [c_ptr] * 6 + [c_int] * 4 + [c_ptr]},
+)
 KERNEL_Q8_FFMA = CudaKernel(
     "fused_ffn",
     "fused_ffn.cu",
     {"prego_fused_ffn_block_q8": [c_ptr] * 10 + [c_int] * 4 + [c_float, c_ptr]},
 )
-# K7q's scratch, kept between calls: the up units' partial sums (P, M, 2F)
-# f32, a (M, F) bf16, the down units' partial sums (S, M, D) f32 and the
-# counters (each column tile's arrivals and departures, the up units done,
-# the blocks past their wait: zero, and left zero); the first design's xn_t,
-# a_t and partial sums
+# K7's and K7q's scratch, kept between calls: the up units' partial sums
+# (P, M, 2F) f32, a (M, F) bf16, the down units' partial sums (S, M, D) f32
+# and the counters (each column tile's arrivals and departures, the up units
+# done, the blocks past their wait: zero, and left zero); the first
+# designs' xn_t (K7q only), a_t and partial sums
+WORKSPACE_FFN = Workspace((torch.float32, torch.bfloat16, torch.float32, torch.int32),
+                          zero=(False, False, False, True))
 WORKSPACE_Q8 = Workspace((torch.float32, torch.bfloat16, torch.float32, torch.int32),
                          zero=(False, False, False, True))
+WORKSPACE_FFN_FFMA = Workspace((torch.bfloat16, torch.float32))
 WORKSPACE_Q8_FFMA = Workspace((torch.bfloat16, torch.bfloat16, torch.float32))
 
 MAX_DECODE_ROWS = 8  # rows one kernel call takes (the main path's decode M is at most 8)
@@ -127,10 +133,11 @@ def _check(name, x, w13, w2, wdtype=torch.bfloat16):
     return M, D, F, max(1, min(8, F // 128))
 
 
-# csrc/fused_ffn_q8.cu's tiling: stages of 32 weight rows, 256 gate (and
-# 256 up) columns an up block, 512 output columns a down block
-_Q8_ROWS, _Q8_UP_COLS, _Q8_DOWN_COLS = 32, 256, 512
-_Q8_MAX_SPLIT_ROWS = 4096  # rows of activations a block stages
+# the tiling of csrc/fused_ffn_q8.cu and csrc/fused_ffn_bf16.cu: stages of
+# 32 weight rows, 256 gate (and 256 up) columns an up block, 512 output
+# columns a down block
+_RING_ROWS, _RING_UP_COLS, _RING_DOWN_COLS = 32, 256, 512
+_RING_MAX_SPLIT_ROWS = 4096  # rows of activations a block stages
 
 
 def _ceil(a: int, b: int) -> int:
@@ -138,21 +145,26 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def q8_splits(D: int, F: int, sms: int):
+def ring_splits(D: int, F: int, sms: int):
     """(P, S): the splits of D among the up units and of F among the down
-    units, so that each phase has about one unit an SM; None where
-    csrc/fused_ffn_q8.cu does not take the shape (D or F no multiple of 16,
-    where TMA cannot start a box, more column tiles than SMs, or a split's
-    activations past shared memory)."""
-    tiles13, tiles2 = _ceil(F, _Q8_UP_COLS), _ceil(D, _Q8_DOWN_COLS)
+    units of K7q's and K7's ring kernels, so that each phase has about one
+    unit an SM; None where they do not take the shape (D or F no multiple
+    of 16, where TMA cannot start a box, more column tiles than SMs, or a
+    split's activations past shared memory)."""
+    tiles13, tiles2 = _ceil(F, _RING_UP_COLS), _ceil(D, _RING_DOWN_COLS)
     if D % 16 or F % 16 or max(tiles13, tiles2) > sms:
         return None
-    rows13, rows2 = _ceil(D, _Q8_ROWS), _ceil(F, _Q8_ROWS)
+    rows13, rows2 = _ceil(D, _RING_ROWS), _ceil(F, _RING_ROWS)
     P = min(sms // tiles13, rows13)
     S = min(sms // tiles2, rows2)
-    if max(_ceil(rows13, P), _ceil(rows2, S)) * _Q8_ROWS > _Q8_MAX_SPLIT_ROWS:
+    if max(_ceil(rows13, P), _ceil(rows2, S)) * _RING_ROWS > _RING_MAX_SPLIT_ROWS:
         return None
     return P, S
+
+
+def _ring_counters(D: int, F: int) -> int:
+    """The ring kernels' counters: two a column tile of each phase, two more."""
+    return 2 * (_ceil(F, _RING_UP_COLS) + _ceil(D, _RING_DOWN_COLS)) + 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,12 +181,23 @@ def fused_ffn(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor) -> torch.Ten
         return torch.cat([fused_ffn(x[i : i + MAX_DECODE_ROWS], w13, w2)
                           for i in range(0, M, MAX_DECODE_ROWS)])
     out = torch.empty(M, D, dtype=torch.float32, device=x.device)
-    a_t = torch.empty(F, M, dtype=torch.bfloat16, device=x.device)
-    part = torch.empty(splits, M, D, dtype=torch.float32, device=x.device)
+    stream = stream_ptr(x.device)
+    design = ring_splits(D, F, _num_sms(x.device.index))
+    if design is None:
+        a_t, part = WORKSPACE_FFN_FFMA.get(x.device, stream, F * M, splits * M * D)
+        KERNEL_FFN_FFMA.launches += 1
+        KERNEL_FFN_FFMA.call(
+            "prego_fused_ffn", x.data_ptr(), w13.data_ptr(), w2.data_ptr(), a_t.data_ptr(),
+            part.data_ptr(), out.data_ptr(), M, D, F, splits, stream,
+        )
+        return out
+    P, S = design
+    part13, a, part2, counters = WORKSPACE_FFN.get(
+        x.device, stream, P * M * 2 * F, M * F, S * M * D, _ring_counters(D, F))
     KERNEL_FFN.launches += 1
     KERNEL_FFN.call(
-        "prego_fused_ffn", x.data_ptr(), w13.data_ptr(), w2.data_ptr(), a_t.data_ptr(),
-        part.data_ptr(), out.data_ptr(), M, D, F, splits, stream_ptr(x.device),
+        "prego_fused_ffn_tma", x.data_ptr(), w13.data_ptr(), w2.data_ptr(), part13.data_ptr(),
+        a.data_ptr(), part2.data_ptr(), counters.data_ptr(), out.data_ptr(), M, D, F, P, S, stream,
     )
     return out
 
@@ -230,7 +253,7 @@ def fused_ffn_block_q8(
             for i in range(0, M, MAX_DECODE_ROWS)])
     out = torch.empty_like(h)
     stream = stream_ptr(h.device)
-    design = q8_splits(D, F, _num_sms(h.device.index))
+    design = ring_splits(D, F, _num_sms(h.device.index))
     if design is None:
         xn_t, a_t, part = WORKSPACE_Q8_FFMA.get(h.device, stream, D * M, F * M, splits * M * D)
         KERNEL_Q8_FFMA.launches += 1
@@ -243,8 +266,7 @@ def fused_ffn_block_q8(
         return out
     P, S = design
     part13, a, part2, counters = WORKSPACE_Q8.get(
-        h.device, stream, P * M * 2 * F, M * F, S * M * D,
-        2 * (_ceil(F, _Q8_UP_COLS) + _ceil(D, _Q8_DOWN_COLS)) + 2)
+        h.device, stream, P * M * 2 * F, M * F, S * M * D, _ring_counters(D, F))
     KERNEL_Q8.launches += 1
     KERNEL_Q8.call(
         "prego_fused_ffn_block_q8",

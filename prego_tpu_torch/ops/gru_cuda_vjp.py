@@ -35,15 +35,22 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, check_cuda_tensor, stream_ptr
+from prego_tpu_torch.ops._cuda import (
+    CudaKernel, Workspace, c_int, c_ptr, check_cuda_tensor, stream_ptr,
+)
 from prego_tpu_torch.ops.dense import mm_f32
 from prego_tpu_torch.ops.gru_cuda import gru_recurrence
 
 KERNEL = CudaKernel(
     "gru_bwd",
     "gru_bwd.cu",
-    {"prego_gru_bwd": [c_ptr] * 9 + [c_int] * 3 + [c_ptr]},
+    {"prego_gru_bwd": [c_ptr] * 10 + [c_int] * 3 + [c_ptr]},
 )
+# the kernel's exchange buffer, dHG of two frames (2, rows, 3H) bf16 for
+# up to MAX_ROWS rows (a launch's), and its frame and exit counts (zero,
+# and left zero), kept between calls
+WORKSPACE = Workspace((torch.bfloat16, torch.int32), zero=(False, True))
+MAX_ROWS = 128  # batch rows one launch takes (csrc/gru_bwd.cu's kMaxRows)
 
 
 def gru_bwd_reference(
@@ -88,7 +95,7 @@ def gru_bwd(
     """Returns (dxg (T, B, 3H) and r (T, B, H) in xg's dtype, dh0 (B, H)
     f32). CUDA: xg, hprev, dhs and w_hh bf16, b_hh f32, all contiguous, H a
     multiple of 16 and at most what the card holds resident (1024 on an
-    H100)."""
+    H100); more than MAX_ROWS rows run in launches of MAX_ROWS."""
     if not xg_tm.is_cuda:
         return gru_bwd_reference(xg_tm, hprev_tm, dhs_tm, w_hh, b_hh)
     T, B, threeH = xg_tm.shape
@@ -104,13 +111,14 @@ def gru_bwd(
     dxg = torch.empty(T, B, threeH, dtype=torch.bfloat16, device=dev)
     r = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
     dh0 = torch.empty(B, H, dtype=torch.float32, device=dev)
-    gbuf = torch.empty(2, B, threeH, dtype=torch.bfloat16, device=dev)
+    stream = stream_ptr(dev)
+    gbuf, counters = WORKSPACE.get(dev, stream, 2 * min(B, MAX_ROWS) * threeH, 2)
     KERNEL.launches += 1
     KERNEL.call(
         "prego_gru_bwd",
         xg_tm.data_ptr(), hprev_tm.data_ptr(), dhs_tm.data_ptr(), w_hh.data_ptr(),
         b_hh.data_ptr(), dxg.data_ptr(), r.data_ptr(), dh0.data_ptr(), gbuf.data_ptr(),
-        T, B, H, stream_ptr(dev),
+        counters.data_ptr(), T, B, H, stream,
     )
     return dxg, r, dh0
 

@@ -12,6 +12,7 @@ kernels' working type.
 
 import ctypes
 import functools
+import hashlib
 
 import numpy as np
 import pytest
@@ -325,6 +326,74 @@ def test_gru_bwd_kernel_refuses_what_it_cannot_take(cuda_device):
         gru_cuda_vjp.gru_bwd(*_gru_bwd_inputs(cuda_device, 2, 2, 2048))
 
 
+@pytest.mark.parametrize("T", [0, 1, 20])
+@pytest.mark.parametrize("B", [1, 16, 31, 32, 33, 64, 65, 100, 130])
+def test_gru_bwd_kernel_at_its_edges(cuda_device, B, T):
+    """K6 at H 1024 with no frame (dh0 is zero), one frame and 20; B 1, 16
+    (one tile of rows), 31 to 33 and 64, 65 (around the tiles of 16 rows
+    multicast in turn), 100 (seven tiles) and 130 (launches of 128 rows and
+    2): within its tolerance, the same bits twice, and the workspace's
+    counter left zero."""
+    args = _gru_bwd_inputs(cuda_device, T, B, 1024, seed=B + T)
+    before = gru_cuda_vjp.KERNEL.launches
+    out = gru_cuda_vjp.gru_bwd(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda_vjp.KERNEL.launches == before + 1
+    assert [o.shape for o in out] == [(T, B, 3072), (T, B, 1024), (B, 1024)]
+    want = gru_cuda_vjp.gru_bwd_reference(*args)
+    if T:
+        assert float((out[1].float() - want[1].float()).abs().max()) <= GRU_BWD_R_TOL
+        assert _rel_err(out[0], want[0]) <= GRU_BWD_REL_TOL
+        assert _rel_err(out[2], want[2]) <= GRU_BWD_REL_TOL
+    else:
+        assert torch.equal(out[2], torch.zeros_like(out[2]))
+    again = gru_cuda_vjp.gru_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, out))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    _, counter = gru_cuda_vjp.WORKSPACE.held[(cuda_device.index, stream)][0]
+    assert int(counter.abs().sum()) == 0
+
+
+def test_gru_bwd_kernel_launches_allocations_and_graph_replay(cuda_device):
+    """K6 at the training shape (T 128, B 16, H 1024): one kernel a call
+    and three allocations, its outputs; a call captured at B 16, replayed
+    after an eager B 64 call has outgrown the workspace the graph holds,
+    with new inputs in the captured buffers, gives the eager bits; the
+    counters are left zero."""
+    stream = torch.cuda.Stream(cuda_device)
+    small = _gru_bwd_inputs(cuda_device, 128, 16, 1024, seed=5)
+    large = _gru_bwd_inputs(cuda_device, 128, 64, 1024, seed=6)
+    fn = lambda a=small: gru_cuda_vjp.gru_bwd(*a)
+    gru_cuda_vjp.WORKSPACE.held.clear()  # the warm call below makes this stream's set at B 16
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(10):
+            fn()
+        stream.synchronize()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 30
+    assert _graph_node_types(fn, cuda_device) == [0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fn()
+    retired = len(gru_cuda_vjp.WORKSPACE.retired)
+    with torch.cuda.stream(stream):
+        gru_cuda_vjp.gru_bwd(*large)  # a larger workspace; the captured set is kept
+    stream.synchronize()
+    assert len(gru_cuda_vjp.WORKSPACE.retired) == retired + 1
+    small[2].copy_(small[2].flip(0).clone())  # new dhs in the captured buffer
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, fn()))
+    for bufs, _, _ in gru_cuda_vjp.WORKSPACE.held.values():
+        assert int(bufs[1].abs().sum()) == 0
+
+
 def test_gru_trainable_runs_k1_forward_and_k6_backward(cuda_device):
     """The layer's gradients on the card (bf16 stream) against its f32
     plain path on the CPU: bf16 streaming of x.W_ih, W_hh and h moves
@@ -622,13 +691,119 @@ def test_decode_attention_wo_res_upd_per_row_positions(cuda_device):
 def test_fused_ffn_alone_kernel_matches_plain(cuda_device, M, D, F):
     h, nw, w13, w2 = _ffn_inputs(cuda_device, M, D, F, seed=M)
     x = ffn.rms_norm(h, nw, 1e-5)  # K7 takes the normed rows
-    before = ffn.KERNEL_FFN.launches
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    # F 1000 takes the first design (TMA cannot start a box at column 1000)
+    kernel = ffn.KERNEL_FFN if ffn.ring_splits(D, F, sms) else ffn.KERNEL_FFN_FFMA
+    before = kernel.launches
     y = ffn.fused_ffn(x, w13, w2)
     torch.cuda.synchronize()
-    assert ffn.KERNEL_FFN.launches == before + (M + 7) // 8
+    assert kernel.launches == before + (M + 7) // 8
     assert y.dtype == torch.float32 and y.shape == (M, D)
     torch.testing.assert_close(y, ffn.fused_ffn_reference(x, w13, w2), **FFN_ALONE_TOL)
     assert torch.equal(ffn.fused_ffn(x, w13, w2), y)  # the same bits again
+
+
+@pytest.mark.parametrize("M", [*range(1, 9), 11])
+def test_fused_ffn_alone_at_every_decode_row_count(cuda_device, M):
+    """K7 at the 1B FFN (D 2048, F 5632) at each row count a call takes,
+    and 11 (calls of 8 and 3): csrc/fused_ffn_bf16.cu's kernel, the same
+    bits twice."""
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, M, 2048, 5632, seed=50 + M)
+    x = ffn.rms_norm(h, nw, 1e-5)
+    before = ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches
+    y = ffn.fused_ffn(x, w13, w2)
+    torch.cuda.synchronize()
+    assert (ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches) == (
+        before[0] + (M + 7) // 8, before[1])
+    torch.testing.assert_close(y, ffn.fused_ffn_reference(x, w13, w2), **FFN_ALONE_TOL)
+    assert torch.equal(ffn.fused_ffn(x, w13, w2), y)
+
+
+def test_fused_ffn_alone_first_design_where_tma_cannot_go(cuda_device):
+    """Where TMA cannot take the weights (F 1000: the up columns start at
+    column 1000, no 16-byte boundary of a box) K7 runs its first design,
+    csrc/fused_ffn.cu's kernels."""
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 3, 512, 1000, seed=3)
+    x = ffn.rms_norm(h, nw, 1e-5)
+    before = ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches
+    y = ffn.fused_ffn(x, w13, w2)
+    torch.cuda.synchronize()
+    assert (ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(y, ffn.fused_ffn_reference(x, w13, w2), **FFN_ALONE_TOL)
+
+
+def test_fused_ffn_alone_launches_allocations_and_graph_replay(cuda_device):
+    """K7 at the 1B FFN: one kernel a call and one allocation, its output;
+    a call captured at M 1, replayed after an eager M 8 call has outgrown
+    the workspace the graph holds, with new inputs in the captured buffers,
+    gives the eager M 1 bits; the counters are left zero. The first design
+    too allocates only its output."""
+    stream = torch.cuda.Stream(cuda_device)
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 8, 2048, 5632, seed=1)
+    small = [ffn.rms_norm(h[:1], nw, 1e-5).contiguous(), w13, w2]
+    large = [ffn.rms_norm(h, nw, 1e-5), w13, w2]
+    odd = _ffn_inputs(cuda_device, 3, 512, 1000, seed=2)
+    fn = lambda a=small: ffn.fused_ffn(*a)
+    fn_odd = lambda: ffn.fused_ffn(odd[0], odd[2], odd[3])
+    ffn.WORKSPACE_FFN.held.clear()  # the warm call below makes this stream's set at M 1
+    with torch.cuda.stream(stream):
+        for f in (fn, fn_odd):
+            f()
+            stream.synchronize()
+            before = torch.cuda.memory_stats()["allocation.all.allocated"]
+            for _ in range(10):
+                f()
+            stream.synchronize()
+            assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 10
+    assert _graph_node_types(fn, cuda_device) == [0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fn()
+    retired = len(ffn.WORKSPACE_FFN.retired)
+    with torch.cuda.stream(stream):
+        ffn.fused_ffn(*large)  # a larger workspace; the captured set is kept
+    stream.synchronize()
+    assert len(ffn.WORKSPACE_FFN.retired) == retired + 1
+    small[0].copy_(small[0][..., torch.randperm(2048, device=cuda_device)].clone())
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn())
+    for bufs, _, _ in ffn.WORKSPACE_FFN.held.values():
+        assert int(bufs[3].abs().sum()) == 0
+
+
+def _digest(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def k7a_k7q_digests(device):
+    """SHA-256 (16 hex digits) of K7a's and K7q's outputs at the 7B FFN, M
+    1 and 8, on inputs made with numpy from a seed."""
+    out = {}
+    for M in (1, 8):
+        h, nw, w13, w2 = _ffn_inputs(device, M, 4096, 11008, seed=70 + M)
+        out[f"K7a M {M}"] = _digest(ffn.fused_ffn_block(h, nw, w13, w2, 1e-5))
+        out[f"K7q M {M}"] = _digest(ffn.fused_ffn_block_q8(
+            *_ffn_q8_inputs(device, M, 4096, 11008, seed=80 + M), 1e-5))
+    return out
+
+
+# K7a's and K7q's digests at 09bfd55, before K7's redesign: K7a shares
+# csrc/fused_ffn.cu with K7's first design, and K7's new kernel copies
+# K7q's ring; neither may move (tools/kernel_ab.py holds the two checkouts'
+# outputs equal in turns as well)
+K7A_K7Q_DIGESTS = {"K7a M 1": "04398cff5da9a2a7", "K7q M 1": "85ba0cc296fbff7d",
+                   "K7a M 8": "04b0038338ec795a", "K7q M 8": "19f8d3944fea7d61"}
+
+
+def test_k7a_and_k7q_outputs_keep_their_bits(cuda_device):
+    assert k7a_k7q_digests(cuda_device) == K7A_K7Q_DIGESTS
 
 
 def test_fused_decode_kernels_refuse_what_they_cannot_take(cuda_device):
@@ -905,7 +1080,7 @@ def test_fused_ffn_block_q8_kernel_matches_plain(cuda_device, M, D, F):
     args = _ffn_q8_inputs(cuda_device, M, D, F, seed=M)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     # F 1000 takes the first design (TMA cannot start a box at column 1000)
-    kernel = ffn.KERNEL_Q8 if ffn.q8_splits(D, F, sms) else ffn.KERNEL_Q8_FFMA
+    kernel = ffn.KERNEL_Q8 if ffn.ring_splits(D, F, sms) else ffn.KERNEL_Q8_FFMA
     before = kernel.launches
     out = ffn.fused_ffn_block_q8(*args, 1e-5)
     torch.cuda.synchronize()

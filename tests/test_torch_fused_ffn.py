@@ -83,9 +83,12 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert torch.equal(out, port.fused_ffn_block_reference(t(h), t(nw), t(w13), t(w2), EPS))
 
 
-@pytest.mark.parametrize("M,D,F", [(1, 128, 256), (8, 256, 512), (5, 128, 384), (16, 128, 250)])
+@pytest.mark.parametrize("M,D,F", [(1, 128, 256), (8, 256, 512), (5, 128, 384), (16, 128, 250),
+                                   (3, 256, 1024), (2, 128, 200)])
 def test_ffn_alone_matches_pallas_interpret_and_reference(M, D, F):
-    """K7: x comes in normed; (M, D) f32 out, no residual."""
+    """K7: x comes in normed; (M, D) f32 out, no residual. On the card, D
+    and F multiples of 16 (F 1024) take csrc/fused_ffn_bf16.cu, the others
+    (F 250, 200) the first design."""
     x, _, w13, w2 = _inputs(M + 2 * F, M, D, F)
     jx, jw13, jw2 = jnp.asarray(x), jnp.asarray(w13), jnp.asarray(w2)
     want = jax_fused_ffn(jx, jw13, jw2, f_block=128, interpret=True)
@@ -107,9 +110,9 @@ def test_ffn_alone_is_the_block_without_norm_and_residual():
 
 def test_ffn_alone_takes_plain_version_on_cpu():
     x, _, w13, w2 = _inputs(1, 2, 64, 128)
-    before = port.KERNEL_FFN.launches
+    before = port.KERNEL_FFN.launches, port.KERNEL_FFN_FFMA.launches
     out = port.fused_ffn(t(x), t(w13), t(w2))
-    assert port.KERNEL_FFN.launches == before
+    assert (port.KERNEL_FFN.launches, port.KERNEL_FFN_FFMA.launches) == before
     assert torch.equal(out, port.fused_ffn_reference(t(x), t(w13), t(w2)))
 
 
@@ -165,12 +168,13 @@ def test_q8_block_takes_plain_version_on_cpu():
     (4104, 11008, 132, None),     # D not a multiple of 16: rows of w2 TMA cannot take
     (4096, 11004, 132, None),     # F not a multiple of 8: rows of w13 TMA cannot take
     (4096, 11008, 32, None),      # 43 column tiles of w13 on 32 SMs: more than one a block
+    (256, 1024, 132, (8, 32)),    # 4 up tiles, 1 down tile: a split a stage of 32 rows
 ])
 def test_q8_splits_fill_the_card_once(D, F, sms, want):
-    """K7q's splits: each launch about one block an SM, every split at
-    least one stage of rows; None where the redesign does not take the
-    shape (the wrapper then runs the first design)."""
-    got = port.q8_splits(D, F, sms)
+    """K7q's and K7's splits: each launch about one block an SM, every
+    split at least one stage of rows; None where the redesigns do not take
+    the shape (the wrappers then run the first designs)."""
+    got = port.ring_splits(D, F, sms)
     assert got == want
     if got is not None:
         P, S = got

@@ -44,22 +44,26 @@ def _bwd_inputs(T, B, H, seed):
     )
 
 
-@pytest.mark.parametrize("T,B,H", [(16, 4, 16), (8, 3, 32), (24, 5, 8)])
+@pytest.mark.parametrize("T,B,H", [(16, 4, 16), (8, 3, 32), (24, 5, 8), (8, 33, 16), (8, 65, 16)])
 def test_bwd_plain_version_matches_pallas_interpret_f32(T, B, H):
+    """B 33 and 65 end in a ragged tile of the 16 rows the kernel stages at
+    a time (the Pallas kernel in one batch block)."""
     xg, hp, dhs, w, b = _bwd_inputs(T, B, H, seed=T + B + H)
-    want = gru_bwd_pallas(*(jnp.asarray(a) for a in (xg, hp, dhs, w, b)), interpret=True)
+    want = gru_bwd_pallas(*(jnp.asarray(a) for a in (xg, hp, dhs, w, b)), batch_block=B,
+                          interpret=True)
     got = gru_bwd_reference(t(xg), t(hp), t(dhs), t(w), t(b))
     for g, wt, name in zip(got, want, ("dxg", "r", "dh0")):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(n(g), n(wt), **F32_TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("T,B,H", [(16, 4, 16), (8, 6, 48)])
+@pytest.mark.parametrize("T,B,H", [(16, 4, 16), (8, 6, 48), (8, 33, 16), (8, 65, 32)])
 def test_bwd_plain_version_matches_pallas_interpret_bf16(T, B, H):
     """The production dtype walk: xg, h_prev, dhs and W_hh in bf16."""
     xg, hp, dhs, w, b = _bwd_inputs(T, B, H, seed=T * B)
     bf = lambda a: jnp.asarray(a, jnp.bfloat16)
-    want = gru_bwd_pallas(bf(xg), bf(hp), bf(dhs), bf(w), jnp.asarray(b), interpret=True)
+    want = gru_bwd_pallas(bf(xg), bf(hp), bf(dhs), bf(w), jnp.asarray(b), batch_block=B,
+                          interpret=True)
     tb = lambda a: t(a, torch.bfloat16)
     got = gru_bwd(tb(xg), tb(hp), tb(dhs), tb(w), t(b))  # a CPU tensor: the plain version
     assert [g.dtype for g in got] == [torch.bfloat16, torch.bfloat16, torch.float32]

@@ -1,9 +1,9 @@
-"""Time the port's K2, K4, K5, K3, K8, K8u, K9, K7q, K7a, K7 and K1 from one
-checkout on the card, under chip_smoke.py's yardsticks, to compare two
+"""Time the port's K2, K4, K5, K3, K8, K8u, K9, K7q, K7a, K7, K1 and K6 from
+one checkout on the card, under chip_smoke.py's yardsticks, to compare two
 designs within one run.
 
-  python3 tools/kernel_ab.py --root DIR [--kernels K2,K4,K5,K3,K8,K8u,K9,K7q,K7a,K7,K1]
-      [--tile-rows] [--k5-cluster] [--k1-split] [--no-check]
+  python3 tools/kernel_ab.py --root DIR [--kernels K2,K4,K5,K3,K8,K8u,K9,K7q,K7a,K7,K1,K6]
+      [--tile-rows] [--k5-cluster] [--k1-split] [--k6-split] [--no-check]
 
 DIR is the root of a checkout of the repo: this one, or an earlier commit
 unpacked with ``git archive`` into a git-ignored directory. Its
@@ -37,13 +37,17 @@ with chip_smoke.py's helpers:
       + cast, or K4 + cast + add, beside it)
   K7q the 7B int8 FFN sub-layer (D 4096, F 11008) at M 1 to 8 (the unfused
       rms_norm + K4 + silu * up + K4 + add beside it)
-  K7a the 7B bf16 FFN sub-layer at M 1 and 8; K7 the 1B FFN (D 2048, F
-      5632) at M 1 and 8 (their designs are not to move: read beside K7q's)
+  K7a the 7B bf16 FFN sub-layer at M 1 and 8 (its design is not to move:
+      read beside K7q's and K7's)
+  K7  the 1B FFN (D 2048, F 5632) at M 1 and 8 and the 7B FFN (D 4096, F
+      11008) at M 1
   K1  the GRU recurrence at H 1024: B 64, T 256 (recognition eval), B 16,
       T 128 (training) and B 128, T 512; us a frame beside the device time
-K8, K8u, K9, K7q, K7a, K7 and K1 also give each kernel's device time and a
-SHA-256 of their output's bytes (``sha256``), so that two checkouts'
-results can be held equal bit for bit.
+  K6  the GRU backward recurrence at H 1024, T 128: B 16 (training) and
+      B 64; us a frame beside the device time
+K8, K8u, K9, K7q, K7a, K7, K1 and K6 also give each kernel's device time
+and a SHA-256 of their output's bytes (``sha256``), so that two
+checkouts' results can be held equal bit for bit.
 ``--tile-rows`` (this checkout only) also times K4's wgmma tile kernel
 with tiles of 128 and of 256 rows (tools/w8_tile_rows.cu) at the 7B
 shapes where w8::launch_tile takes 128. ``--k5-cluster`` (this checkout
@@ -53,10 +57,13 @@ block cluster (tools/w8a8_gemv_cluster.cu) at the decode shapes.
 (tools/gru_split.cu) at K1's three shapes, for the split of a frame
 between the copy of h, the product, the gate math and the grid barrier,
 and times T empty exchanges over the same 128 CTAs, by grid barrier and by
-K1's split arrive and wait: the chain floor of a frame. ``--no-check``
-times K7q's and K1's cases without holding them against their plain
-versions: for copies of a tree with a part of a kernel taken out, to read
-what that part costs.
+K1's split arrive and wait: the chain floor of a frame. ``--k6-split``
+runs K6's design of 09bfd55 with clock64() stamps (tools/gru_bwd_split.cu)
+at K6's two shapes, for the split of a frame between staging h_prev, the
+gate product, the gate math, the grid barrier, staging dHG and the dh
+product. ``--no-check`` times K7q's, K7's, K1's and K6's cases without
+holding them against their plain versions: for copies of a tree with a
+part of a kernel taken out, to read what that part costs.
 
 Prints one JSON object a case, each beside the card's nvidia-smi line.
 """
@@ -71,7 +78,7 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-CHECK = True  # hold K7q's and K1's cases against their plain versions (--no-check: not)
+CHECK = True  # hold K7q's, K7's, K1's and K6's cases to their plain versions (--no-check: not)
 
 
 def load_smoke():
@@ -416,32 +423,37 @@ def k7q_cases(sm, dev):
 
 
 def k7_cases(sm, dev, block):
-    """K7a (block) at the 7B FFN or K7 at the 1B FFN, M 1 and 8."""
+    """K7a (block) at the 7B FFN, M 1 and 8; or K7 at the 1B FFN, M 1 and
+    8, and at the 7B FFN, M 1."""
     from prego_tpu_torch.ops import fused_ffn as ffn
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(29)
     bf16, eps = torch.bfloat16, 1e-5
-    D, F = (4096, 11008) if block else (2048, 5632)
     rn = lambda *shape, scale=1.0: (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf16)
-    weights = sm.copies_past_l2(lambda: (rn(D, scale=0.1) + 1, rn(D, 2 * F, scale=D ** -0.5),
-                                         rn(F, D, scale=F ** -0.5)), 6 * D * F)
     name = "K7a" if block else "K7"
-    for M in (1, 8):
-        sets = [(rn(M, D), *w) for w in weights]
-        if block:
-            fn = lambda h, nw, w13, w2: ffn.fused_ffn_block(h, nw, w13, w2, eps)
-            ref = lambda h, nw, w13, w2: ffn.fused_ffn_block_reference(h, nw, w13, w2, eps)
-        else:
-            fn = lambda h, nw, w13, w2: ffn.fused_ffn(h, w13, w2)
-            ref = lambda h, nw, w13, w2: ffn.fused_ffn_reference(h, w13, w2)
-        out = fn(*sets[0])
-        tol = sm.TOL["fused_ffn_block" if block else "fused_ffn"]
-        err = sm.max_err(out, ref(*sets[0]))
-        if not err <= tol:
-            raise AssertionError(f"{name} M {M}: max_abs_err {err}")
-        yield dict(kernel=name, shape=f"M {M} D {D} F {F}", max_abs_err=err,
-                   sha256=digest(out), **timed(sm, f"{name} M {M}", fn, sets, 50))
+    shapes = [(4096, 11008, (1, 8))] if block else [(2048, 5632, (1, 8)), (4096, 11008, (1,))]
+    for D, F, rows in shapes:
+        weights = sm.copies_past_l2(lambda: (rn(D, scale=0.1) + 1, rn(D, 2 * F, scale=D ** -0.5),
+                                             rn(F, D, scale=F ** -0.5)), 6 * D * F)
+        for M in rows:
+            sets = [(rn(M, D), *w) for w in weights]
+            if block:
+                fn = lambda h, nw, w13, w2: ffn.fused_ffn_block(h, nw, w13, w2, eps)
+                ref = lambda h, nw, w13, w2: ffn.fused_ffn_block_reference(h, nw, w13, w2, eps)
+            else:
+                fn = lambda h, nw, w13, w2: ffn.fused_ffn(h, w13, w2)
+                ref = lambda h, nw, w13, w2: ffn.fused_ffn_reference(h, w13, w2)
+            out = fn(*sets[0])
+            tol = sm.TOL["fused_ffn_block" if block else "fused_ffn"]
+            err = sm.max_err(out, ref(*sets[0]))
+            if CHECK and not err <= tol:
+                raise AssertionError(f"{name} M {M} D {D}: max_abs_err {err}")
+            if CHECK and not torch.equal(fn(*sets[0]), out):
+                raise AssertionError(f"{name} M {M} D {D}: a second call gave other bits")
+            yield dict(kernel=name, shape=f"M {M} D {D} F {F}", max_abs_err=err,
+                       sha256=digest(out), **timed(sm, f"{name} M {M} D {D}", fn, sets, 50))
+        del weights
 
 
 K1_SHAPES = ((64, 256), (16, 128), (128, 512))  # (B, T) at H 1024
@@ -525,6 +537,82 @@ def k1_split_cases(sm, dev):
                    **rounds)
 
 
+K6_SHAPES = ((16, 128), (64, 128))  # (B, T) at H 1024
+K6_PHASES = ("stage_h_prev", "gate_product", "gate_math", "grid_barrier", "stage_dhg",
+             "dh_product")
+
+
+def k6_inputs(dev, B, T, H, seed):
+    """xg, h_prev, dhs and W_hh bf16 as the trainable layer streams them."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k = H ** -0.5
+    bf16 = torch.bfloat16
+    return (torch.randn(T, B, 3 * H, device=dev, generator=gen).to(bf16),
+            (torch.rand(T, B, H, device=dev, generator=gen) * 1.8 - 0.9).to(bf16),
+            (torch.randn(T, B, H, device=dev, generator=gen) * 0.5).to(bf16),
+            ((torch.rand(H, 3 * H, device=dev, generator=gen) * 2 - 1) * k).to(bf16),
+            (torch.rand(3 * H, device=dev, generator=gen) * 2 - 1) * k)
+
+
+def k6_cases(sm, dev):
+    """K6 at H 1024 and K6_SHAPES; one input set (W_hh stays resident, as
+    in K1's cases). Held to r within GRU_BWD_R_TOL, dxg and dh0 within
+    2^-6 of their largest value."""
+    from prego_tpu_torch.ops import gru_cuda_vjp
+
+    H = 1024
+    for B, T in K6_SHAPES:
+        sets = [k6_inputs(dev, B, T, H, seed=B + T)]
+        out = gru_cuda_vjp.gru_bwd(*sets[0])
+        ref = gru_cuda_vjp.gru_bwd_reference(*sets[0])
+        r_err = sm.max_err(out[1], ref[1])
+        rel = max(sm.rel_err(out[0], ref[0]), sm.rel_err(out[2], ref[2]))
+        if CHECK and not (r_err <= sm.GRU_BWD_R_TOL and rel <= sm.TOL["gru_bwd"]):
+            raise AssertionError(f"K6 B {B} T {T}: r error {r_err}, relative error {rel}")
+        again = gru_cuda_vjp.gru_bwd(*sets[0])
+        if CHECK and not all(torch.equal(a, b) for a, b in zip(again, out)):
+            raise AssertionError(f"K6 B {B} T {T}: a second call gave other bits")
+        case = dict(kernel="K6", shape=f"B {B} T {T} H {H}", r_max_abs_err=r_err,
+                    max_rel_err=rel, max_abs_err=max(sm.max_err(a, b) for a, b in zip(out, ref)),
+                    sha256=digest(*out),
+                    **timed(sm, f"K6 B {B} T {T}", gru_cuda_vjp.gru_bwd, sets, 10))
+        if case["device_ms"] is not None:
+            case["device_us_per_frame"] = case["device_ms"] / T * 1e3
+        case["us_per_frame"] = case["ms"] / T * 1e3
+        yield case
+
+
+def k6_split_cases(sm, dev):
+    """K6's design of 09bfd55 with phase stamps (tools/gru_bwd_split.cu)."""
+    from prego_tpu_torch.ops._cuda import CudaKernel, c_int, c_ptr, stream_ptr
+
+    kernel = CudaKernel("gru_bwd_split", str(REPO / "tools" / "gru_bwd_split.cu"),
+                        {"prego_gru_bwd_split": [c_ptr] * 10 + [c_int] * 3 + [c_ptr]})
+    H = 1024
+    grid = H // 8
+    for B, T in K6_SHAPES:
+        xg, hp, dhs, w, b = k6_inputs(dev, B, T, H, seed=B + T)
+        dxg = torch.empty(T, B, 3 * H, dtype=torch.bfloat16, device=dev)
+        r = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
+        dh0 = torch.empty(B, H, device=dev)
+        gbuf = torch.empty(2, B, 3 * H, dtype=torch.bfloat16, device=dev)
+        stamps = torch.zeros(grid, len(K6_PHASES), dtype=torch.int64, device=dev)
+
+        def split():
+            kernel.call("prego_gru_bwd_split", xg.data_ptr(), hp.data_ptr(), dhs.data_ptr(),
+                        w.data_ptr(), b.data_ptr(), dxg.data_ptr(), r.data_ptr(), dh0.data_ptr(),
+                        gbuf.data_ptr(), stamps.data_ptr(), T, B, H, stream_ptr(dev))
+        ms = sm.time_ms(split, 5)
+        cycles = stamps.double().mean(0) / T  # a frame's cycles in each phase, mean over CTAs
+        frame_us = ms / T * 1e3
+        share = cycles / cycles.sum()
+        yield dict(kernel="K6 split (09bfd55's design)", shape=f"B {B} T {T} H {H}",
+                   us_per_frame=frame_us,
+                   cycles_per_frame={p: float(c) for p, c in zip(K6_PHASES, cycles)},
+                   us_per_frame_by_phase={p: float(s) * frame_us for p, s in zip(K6_PHASES, share)})
+
+
 def tile_rows_cases(sm, dev):
     """K4's tile kernel with tiles of 128 (2 warpgroups) and 256 rows (4)
     where w8::launch_tile takes 128."""
@@ -564,7 +652,7 @@ def tile_rows_cases(sm, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True, help="checkout whose port is timed")
-    ap.add_argument("--kernels", default="K2,K4,K5,K3,K8,K8u,K9,K7q,K7a,K7,K1",
+    ap.add_argument("--kernels", default="K2,K4,K5,K3,K8,K8u,K9,K7q,K7a,K7,K1,K6",
                     help="which kernels' cases, in order")
     ap.add_argument("--tile-rows", action="store_true",
                     help="also time K4's tiles of 128 and 256 rows (this checkout only)")
@@ -572,8 +660,11 @@ def main():
                     help="also time K5's GEMV with a cluster reduce (this checkout only)")
     ap.add_argument("--k1-split", action="store_true",
                     help="also split a frame of dc1e0f6's K1 by phase, and time empty exchanges")
+    ap.add_argument("--k6-split", action="store_true",
+                    help="also split a frame of 09bfd55's K6 by phase")
     ap.add_argument("--no-check", action="store_true",
-                    help="time K7q's and K1's cases without holding them to their plain versions")
+                    help="time K7q's, K7's, K1's and K6's cases without holding them to their "
+                         "plain versions")
     args = ap.parse_args()
     global CHECK
     CHECK = not args.no_check
@@ -598,7 +689,8 @@ def main():
             "K3": lambda: k3_cases(sm, dev), "K8": lambda: k8_cases(sm, dev, upd=False),
             "K8u": lambda: k8_cases(sm, dev, upd=True), "K9": lambda: k9_cases(sm, dev),
             "K7q": lambda: k7q_cases(sm, dev), "K7a": lambda: k7_cases(sm, dev, block=True),
-            "K7": lambda: k7_cases(sm, dev, block=False), "K1": lambda: k1_cases(sm, dev)}
+            "K7": lambda: k7_cases(sm, dev, block=False), "K1": lambda: k1_cases(sm, dev),
+            "K6": lambda: k6_cases(sm, dev)}
     names = args.kernels.split(",")
     if args.tile_rows:
         runs["K4 tile rows"] = lambda: tile_rows_cases(sm, dev)
@@ -606,6 +698,9 @@ def main():
     if args.k1_split:
         runs["K1 split"] = lambda: k1_split_cases(sm, dev)
         names.append("K1 split")
+    if args.k6_split:
+        runs["K6 split"] = lambda: k6_split_cases(sm, dev)
+        names.append("K6 split")
     for name in names:
         for case in runs[name]():
             print(json.dumps(dict(root=str(args.root), card=card, **case)), flush=True)
