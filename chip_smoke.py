@@ -174,6 +174,17 @@ Q8_STACK = {"PREGO_FUSED_DENSE_Q8": "1", "PREGO_FUSED_FFN_Q8": "1"}
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# the two fused-wo kernels, which the per-row decode of continuous batching
+# skips (prego_tpu/models/llama/model.py:488, 580)
+FUSED_WO = ("decode_attention_wo", "decode_attention_wo_res_upd")
+# cb greedy parity: a request whose tokens differ from its solo run passes
+# only where the solo run's top two logits at the first differing position
+# are a near-tie, at most two bf16 ulps of the row's largest |logit| apart
+# (an ulp of x is 2^-8 to 2^-7 of x): the batched and the solo path round
+# their bf16 activations apart, and the logits move by about that much
+NEAR_TIE = 2.0 ** -6
+# online detection: frames a block for each stream
+ONLINE_BLOCK = 256
 # 7B projections (K, N) at decode: wqkv, wo, w13, w2 and the lm-head
 PROJ_7B = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
            "w2": (11008, 4096), "lm_head": (4096, 32000)}
@@ -1173,10 +1184,93 @@ def check_against_cpu(dev):
         f"max |d logit| / max |logit| {worst:.3e} (tol 3e-2)")
     if not worst <= 3e-2:
         raise AssertionError("LLaMA on the card disagrees with the CPU f32 path")
+    per_row = check_per_row_against_cpu(cfg, p_dev, p_cpu, dev, rng)
+    cb_parity = check_cb_greedy_parity(cfg, p_dev, dev)
     quantized = check_llama_quantized(cfg, dev, toks)
     fused = check_llama_1b(dev, toks)
     return {"miniroad_max_prob_err": rec_err, "miniroad_argmax_agreement": agree,
-            "llama_rel_logit_err": worst, **quantized, **fused, **train}
+            "llama_rel_logit_err": worst, "per_row_rel_logit_err": per_row,
+            "cb_greedy_parity": cb_parity, **quantized, **fused, **train}
+
+
+def check_per_row_against_cpu(cfg, p_dev, p_cpu, dev, rng):
+    """(a) 8 rows at mixed positions through the per-row forward (a 16-token
+    prefill, each row at its own start, then 3 decode steps) on the card
+    in bf16 against the same forward on the CPU in f32, with the 7B bf16
+    check's tolerance; the decode steps run K2 with (B,) bounds and K7a."""
+    from prego_tpu_torch.models.llama.model import forward, init_cache
+    from prego_tpu_torch.ops import kernels
+
+    B = 8
+    starts = torch.tensor([0, 3, 7, 12, 0, 5, 9, 2], dtype=torch.int32)
+    toks = torch.from_numpy(rng.integers(0, 256, (B, 19))).long()
+    c_dev = init_cache(cfg, B, torch.bfloat16, dev)
+    c_cpu = init_cache(cfg, B, torch.float32, "cpu")
+    worst, before = 0.0, None
+    for i, (pos, chunk) in enumerate(((starts, toks[:, :16]), (starts + 16, toks[:, 16:17]),
+                                      (starts + 17, toks[:, 17:18]),
+                                      (starts + 18, toks[:, 18:19]))):
+        if i == 1:
+            before = {n: k.launches for n, k in kernels().items()}
+        l_dev, c_dev = forward(p_dev, chunk.to(dev), pos.to(dev), c_dev, cfg)
+        l_cpu, c_cpu = forward(p_cpu, chunk, pos, c_cpu, cfg)
+        worst = max(worst, max_err(l_dev.cpu(), l_cpu) / float(l_cpu.abs().max()))
+    ran = {n: k.launches - before[n] for n, k in kernels().items() if k.launches > before[n]}
+    log(f"(a) per-row forward, LLaMA 7B width x 2 layers, 8 rows at starts {starts.tolist()}, "
+        f"card bf16 vs CPU f32, prefill 16 + 3 decode steps: max |d logit| / max |logit| "
+        f"{worst:.3e} (tol 3e-2); kernels at decode {ran}")
+    if not worst <= 3e-2:
+        raise AssertionError("the per-row forward on the card disagrees with the CPU f32 path")
+    if set(ran) != {"decode_attention", "fused_ffn_block"}:
+        raise AssertionError(f"the per-row decode at 7B width ran {ran}, not K2 and K7a")
+    return worst
+
+
+def check_cb_greedy_parity(cfg, p_dev, dev):
+    """(d) 16 mixed requests through the continuous batcher (8 slots, greedy,
+    the overlap fetch on) against each request generated alone (B=1
+    ``generate``, greedy), at the 2-layer cut of 7B widths in bf16. A
+    mismatch passes only at a near-tie of the solo run (NEAR_TIE)."""
+    from prego_tpu_torch.models.llama import ByteTokenizer, Llama
+    from prego_tpu_torch.models.llama.model import forward, init_cache
+    from prego_tpu_torch.serving_llm import ContinuousBatcher, Request
+
+    lm = Llama(p_dev, ByteTokenizer(), cfg)
+    eos = lm.tokenizer.eos_id
+    rng = np.random.default_rng(12)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 256, int(rng.integers(5, 80))).tolist(),
+                    max_gen_len=16 if i == 0 else int(rng.integers(4, 17))) for i in range(16)]
+    cb = ContinuousBatcher(lm, slots=8, temperature=0.0)
+    t0 = time.perf_counter()
+    done, stats = cb.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {c.uid: [x for x in c.tokens if x != eos] for c in done}
+    exact, gaps = 0, []
+    for r in reqs:
+        want = lm.generate([r.prompt], r.max_gen_len, temperature=0.0)[0][0]
+        if got[r.uid] == want:
+            exact += 1
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(got[r.uid], want)) if a != b),
+                 min(len(got[r.uid]), len(want)))
+        ctx = torch.tensor([r.prompt + want[:j]], device=dev)
+        logits, _ = forward(lm.params, ctx, 0, init_cache(cfg, 1, lm.dtype, dev), cfg, lm.rope)
+        row = logits[0, -1].float()
+        top2 = row.topk(2).values
+        gap, scale = float(top2[0] - top2[1]), float(row.abs().max())
+        gaps.append({"uid": r.uid, "position": j, "top2_gap": gap, "max_abs_logit": scale,
+                     "near_tie": gap <= NEAR_TIE * scale})
+    share = exact / len(reqs)
+    log(f"(d) cb greedy parity, 7B width x 2 layers, 16 requests through 8 slots "
+        f"(overlap fetch {cb.overlap_fetch}) against B=1 generate: {exact} of 16 exact "
+        f"({share:.4f}); mismatches {gaps} (a near-tie: top-2 gap <= {NEAR_TIE:.4g} x max "
+        f"|logit|); cb wall {wall:.3f}s, decode steps {stats.decode_steps}, utilization "
+        f"{stats.utilization:.4f}")
+    if not all(g["near_tie"] for g in gaps):
+        raise AssertionError(f"cb greedy output differs from its solo run beyond a near-tie: {gaps}")
+    return {"exact_share": share, "mismatches": gaps, "wall_s": wall,
+            "decode_steps": stats.decode_steps, "utilization": stats.utilization}
 
 
 def check_llama_1b(dev, toks):
@@ -1380,6 +1474,13 @@ def untrained_mAP(cfg, dev):
     return mAP
 
 
+def anticipate_flags(dev, seqs):
+    """The anticipate CLI's flags of the main path's 7B bf16 run over ``seqs``."""
+    return ["--llm", "torch-llama", "--fabricated", "7b", "--dataset", "synthcustom",
+            "--seqs", str(seqs), "--results_root", str(WORK / "pipeline" / "results"),
+            "--device", str(dev)]
+
+
 def run_main_path(dev):
     from prego_tpu_torch.cli import anticipate
     from prego_tpu_torch.cli.pipeline import aggregate_predictions
@@ -1393,11 +1494,7 @@ def run_main_path(dev):
     cfg = RecognitionConfig.from_dict(recognition_config(data, video_list))
     before = untrained_mAP(cfg, dev)
     agg_path = WORK / "pipeline" / "aggregated.json"
-    ant_args_list = [
-        "--llm", "torch-llama", "--fabricated", "7b", "--dataset", "synthcustom",
-        "--seqs", str(agg_path), "--results_root", str(WORK / "pipeline" / "results"),
-        "--device", str(dev),
-    ]
+    ant_args_list = anticipate_flags(dev, agg_path)
     ant_args = anticipate.parse_args(ant_args_list)
     # the quantized modes over the same aggregated sequences
     mode_args = {mode: anticipate.parse_args([*ant_args_list, *flags]) for mode, flags in
@@ -1538,7 +1635,223 @@ def run_main_path(dev):
         "launches": launches,
     }
     log(f"main path: {json.dumps(report)}")
-    return {"bf16": llm, **qllms}, llm_1b, cfg, launches, report
+    return {"bf16": llm, **qllms}, llm_1b, cfg, launches, report, raw
+
+
+# ---- 3b. the serving paths: per-row decode, continuous batching, online ----
+
+def count_launches(fn):
+    """``fn()`` with every kernel's count set to 0 just before it; returns
+    (its result, the counts just after, the seconds it took)."""
+    from prego_tpu_torch.ops import kernels
+
+    for k in kernels().values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels().items()}, time.perf_counter() - t0
+
+
+def check_launched(phase, counts, must, must_not=FUSED_WO):
+    log(f"  {phase} launches: { {n: c for n, c in counts.items() if c} }")
+    missing = [n for n in must if counts[n] <= 0]
+    extra = [n for n in must_not if counts[n] > 0]
+    if missing or extra:
+        raise AssertionError(f"{phase}: kernels not launched {missing}, launched per row {extra}")
+
+
+def summed_stats(cb):
+    """Wrap ``cb.serve`` so that its ServeStats add up over calls."""
+    from dataclasses import fields
+
+    from prego_tpu_torch.serving_llm import ServeStats
+
+    total, serve = ServeStats(), cb.serve
+
+    def wrapped(*args, **kwargs):
+        done, st = serve(*args, **kwargs)
+        for f in fields(ServeStats):
+            setattr(total, f.name, getattr(total, f.name) + getattr(st, f.name))
+        return done, st
+
+    cb.serve = wrapped
+    return total
+
+
+def stats_dict(st):
+    from dataclasses import asdict
+
+    return {**asdict(st), "utilization": st.utilization}
+
+
+@torch.no_grad()
+def check_per_row_7b(lm, dev):
+    """(a) The full 7B model in bf16, 8 rows with every position equal: the
+    per-row forward gives the scalar forward's logits and cache bit for
+    bit, a 16-token prefill's continuation at S = 4 and a decode step."""
+    from prego_tpu_torch.models.llama.model import clone_cache, forward, init_cache
+
+    B = 8
+    toks = torch.randint(0, 256, (B, 21), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    c_s = init_cache(lm.config, B, lm.dtype, dev)
+    forward(lm.params, toks[:, :16], 0, c_s, lm.config, lm.rope)
+    c_v = clone_cache(c_s)
+    equal = []
+    for start, chunk in ((16, toks[:, 16:20]), (20, toks[:, 20:21])):
+        l_s, _ = forward(lm.params, chunk, start, c_s, lm.config, lm.rope)
+        l_v, _ = forward(lm.params, chunk, torch.full((B,), start, dtype=torch.int32, device=dev),
+                         c_v, lm.config, lm.rope)
+        equal.append(torch.equal(l_s, l_v))
+    leaves = lambda c: [x for leaf in c["k"] + c["v"]
+                        for x in (leaf.values() if isinstance(leaf, dict) else [leaf])]
+    equal.append(all(torch.equal(a, b) for a, b in zip(leaves(c_s), leaves(c_v))))
+    del c_s, c_v
+    torch.cuda.empty_cache()
+    log(f"(a) per-row forward, LLaMA 7B bf16 full depth, 8 rows at equal positions: logits at "
+        f"S 4 and S 1, then the cache, equal to the scalar forward's bit for bit: {equal}")
+    if not all(equal):
+        raise AssertionError("the per-row forward with equal entries differs from the scalar one")
+    return equal
+
+
+def run_serving(dev, llms, llm_1b, cfg, report, raw):
+    """(a) the 7B per-row check, (b) anticipation at 7B bf16 through the
+    continuous batcher, (c) a prefix-sharing burst through the int8 + int8
+    KV model with the int8 stack, a burst at 1B (K8 skipped per row), (e)
+    online detection over 4 streams with the trained recognizer and 7B cb
+    checks; (f) each phase's kernel counts, from 0 just before it."""
+    from prego_tpu_torch.aggregate import aggregate_video
+    from prego_tpu_torch.anticipation.llm import TorchLlamaLLM
+    from prego_tpu_torch.checkpoint import load_params
+    from prego_tpu_torch.checkpoint.bridge import miniroad_from_numpy
+    from prego_tpu_torch.cli import anticipate
+    from prego_tpu_torch.models.miniroad import MiniROAD
+    from prego_tpu_torch.serving import MultiStreamMistakeDetector, OnlineRecognizer
+    from prego_tpu_torch.serving_llm import ContinuousBatcher, Request
+
+    out = {"per_row_7b_equal": check_per_row_7b(llms["bf16"].llama, dev)}
+    counts = {}
+
+    # (b) the main path's anticipation at 7B bf16 with --serving cb, on the
+    # main path's weights (no second draw), over every aggregated sequence
+    lm = llms["bf16"].llama
+    cb_llm = TorchLlamaLLM(params=lm.params, config=lm.config, device=dev, serving="cb")
+    cb_stats = summed_stats(cb_llm._batcher())
+    cb_args = anticipate.parse_args([*anticipate_flags(dev, WORK / "pipeline" / "aggregated.json"),
+                                     "--serving", "cb"])
+    sent, complete = [], cb_llm.text_completion
+
+    def recorded(prompts, **kw):  # the anticipation loop's calls, replayed below
+        sent.append((prompts, kw))
+        return complete(prompts, **kw)
+
+    cb_llm.text_completion = recorded
+    res, counts["b_cb_7b_bf16"], wall = count_launches(lambda: anticipate.run(cb_args, llm=cb_llm))
+    cb_llm.text_completion = complete
+    calls = len(res.llm_latencies)
+    m = res.metrics
+    if m is None or m["samples"] != report["steps_anticipated"] or set(res.preds) != set(raw):
+        raise AssertionError(f"cb anticipation malformed: {m}")
+    out["b_cb_7b_bf16"] = {
+        "sequences": len(res.preds), "anticipation_s": wall, "llm_calls": calls,
+        "s_per_llm_call": wall / max(calls, 1), "batch_s_per_llm_call": report["s_per_llm_call"],
+        "serve_stats": stats_dict(cb_stats),
+        "verdict_metrics": {k: m[k] for k in ("samples", "tp", "fp", "fn", "tn", "accuracy", "f1")}}
+    # where a call's time goes: the anticipation loop's first 8 calls, replayed through
+    # the batch path and through cb under torch.profiler
+    for name, lm_ in (("batch", llms["bf16"]), ("cb", cb_llm)):
+        ms, busy, top, ops = profile_steps(lambda i: lm_.text_completion(sent[i][0], **sent[i][1]),
+                                           min(8, len(sent)))
+        out["b_cb_7b_bf16"][f"{name}_profiled"] = {
+            "ms_per_call": ms, "device_busy": busy, "device_ops_per_call": ops,
+            "top_device_ms": {k[:60]: v for k, v in top.items()}}
+    log(f"(b) cb at 7B bf16, {len(res.preds)} of {len(raw)} sequences, 8 slots: "
+        f"{wall / max(calls, 1):.4f} s per LLM call over {calls} calls (batch pass "
+        f"{report['s_per_llm_call']:.4f}); {json.dumps(out['b_cb_7b_bf16'])}")
+    check_launched("(b) cb 7B bf16", counts["b_cb_7b_bf16"], ("decode_attention", "fused_ffn_block"))
+
+    # (c) a 16-request burst sharing one registered prefix through the int8
+    # + int8 KV model with the int8 stack (K9, K7q) on, 8 new tokens each
+    rng = np.random.default_rng(21)
+    ctx = rng.integers(0, 256, 200).tolist()
+
+    def burst(lm_, n):
+        cb = ContinuousBatcher(lm_, slots=8)
+        aligned = cb.register_prefix(ctx)
+        reqs = [Request(uid=i, prompt=ctx + rng.integers(0, 256, int(rng.integers(2, 40))).tolist(),
+                        max_gen_len=8) for i in range(n)]
+        done, st = cb.serve(reqs)
+        if sorted(c.uid for c in done) != list(range(n)) or not all(
+                0 < len(c.tokens) <= 8 for c in done):
+            raise AssertionError("a cb burst lost or overran a request")
+        return {"prefix_tokens": aligned, "requests": n, "serve_stats": stats_dict(st)}
+
+    kv8 = llms["int8_kv8"].llama
+    with gate_env(Q8_STACK):
+        out["c_cb_int8_kv8_q8"], counts["c_cb_int8_kv8_q8"], wall = count_launches(
+            lambda: burst(kv8, 16))
+    out["c_cb_int8_kv8_q8"]["wall_s"] = wall
+    log(f"(c) cb burst, 7B int8 + int8 KV with the int8 stack: {json.dumps(out['c_cb_int8_kv8_q8'])}")
+    check_launched("(c) cb 7B int8 stack", counts["c_cb_int8_kv8_q8"],
+                   ("decode_attention_q8", "fused_dense_q8", "fused_ffn_block_q8"))
+    # the same burst at 1B in bf16, default gates: K8 runs on the scalar
+    # path at this shape, and per row K2 takes its place
+    with gate_env({}):
+        out["cb_1b_bf16"], counts["cb_1b_bf16"], wall = count_launches(
+            lambda: burst(llm_1b.llama, 8))
+    out["cb_1b_bf16"]["wall_s"] = wall
+    log(f"cb burst, 1B bf16, default gates: {json.dumps(out['cb_1b_bf16'])}")
+    check_launched("cb 1B bf16", counts["cb_1b_bf16"], ("decode_attention", "fused_ffn_block"))
+
+    # (e) online: 4 streams of the main path's test videos through the
+    # trained recognizer, checks through the 7B bf16 LLM in cb mode
+    model = MiniROAD(cfg)
+    params = miniroad_from_numpy(load_params(cfg.eval), device=dev)
+    vids = sorted(raw)[:4]
+    T = min(len(raw[v]["pred"]) for v in vids)
+    frames = np.stack([np.load(Path(cfg.root_path) / cfg.rgb_type / f"{v}.npy")[:T] for v in vids],
+                      axis=1).astype(np.float32)  # (T, 4, 2048)
+    det = MultiStreamMistakeDetector(OnlineRecognizer(model, params, batch=4, device=dev), cb_llm)
+    block_walls = []
+
+    def online():
+        for t0 in range(0, T, ONLINE_BLOCK):
+            tb = time.perf_counter()
+            det.push_frames(frames[t0 : t0 + ONLINE_BLOCK])
+            torch.cuda.synchronize()
+            block_walls.append(time.perf_counter() - tb)
+        det.finish()
+
+    _, counts["e_online"], wall = count_launches(online)
+    check_launched("(e) online", counts["e_online"], ())
+    rec = OnlineRecognizer(model, params, batch=4, device=dev)
+    ids = np.concatenate([rec.step_block(frames[t0 : t0 + ONLINE_BLOCK])
+                          for t0 in range(0, T, ONLINE_BLOCK)])
+    # a block of frames through the recognizer alone, under torch.profiler
+    rec.reset()
+    ms, busy, _, ops = profile_steps(lambda i: rec.step_block(frames[64 * i : 64 * (i + 1)]), 4)
+    agree = [float(np.mean(ids[:, b] == np.asarray(raw[v]["pred"][:T]))) for b, v in enumerate(vids)]
+    same_seq = [det.aggregators[b].sequence == aggregate_video(ids[:, b].tolist(),
+                                                                ids[:, b].tolist())["pred"]
+                for b in range(4)]
+    events = sum(len(e) for e in det.events)
+    out["e_online"] = {
+        "streams": 4, "frames_per_stream": T, "block": ONLINE_BLOCK, "wall_s": wall,
+        "frames_per_s": 4 * T / wall, "block_wall_s_median": float(np.median(block_walls)),
+        "block_wall_s_max": max(block_walls), "events": events,
+        "recognizer_ms_per_frame_profiled": ms / 64, "recognizer_device_busy": busy,
+        "recognizer_device_ops_per_frame": ops / 64,
+        "mistakes": sum(e.is_mistake for ev in det.events for e in ev),
+        "id_agreement_with_evaluator": agree, "sequence_equals_aggregate": same_seq}
+    log(f"(e) online, 4 streams x {T} frames, blocks of {ONLINE_BLOCK}: {4 * T / wall:.1f} frames/s, "
+        f"{json.dumps(out['e_online'])}")
+    if not all(a >= 0.999 for a in agree) or not all(same_seq):
+        raise AssertionError(f"online ids or sequences disagree: {agree}, {same_seq}")
+    if events <= 0:
+        raise AssertionError("online detection raised no event")
+    return out, counts
 
 
 # ---- 4. train step and decode step times ----
@@ -1594,7 +1907,7 @@ def train_step_ms(cfg, dev, n_timed=20, n_profiled=5):
     for i in range(n_timed):
         one(i)
     ms = (time.perf_counter() - t0) * 1e3 / n_timed
-    prof_ms, busy, top = profile_steps(one, n_profiled)
+    prof_ms, busy, top, _ = profile_steps(one, n_profiled)
     log(f"train step (B 16, window 128, full width, K1 + K6): {ms:.3f} ms host clock over "
         f"{n_timed} steps; under the profiler {prof_ms:.3f} ms/step, device busy "
         f"{'not measured' if busy is None else f'{busy:.3f}'}; device ms/step by op: "
@@ -1605,7 +1918,8 @@ def train_step_ms(cfg, dev, n_timed=20, n_profiled=5):
 
 def profile_steps(step, n):
     """``step(i)`` for i < n under torch.profiler: host-clock ms a step, the
-    device busy share, and the device ms a step of the 8 costliest ops."""
+    device busy share, the device ms a step of the 8 costliest ops, and
+    the device's operations (kernels, copies, sets) a step."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1613,15 +1927,16 @@ def profile_steps(step, n):
             step(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
+    by_kernel, ops = {}, 0
     for e in prof.key_averages():  # the device's own entries: kernels, copies, sets
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        ops += e.count
         dt = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
         if dt > 0:
             by_kernel[e.key] = dt / 1e3 / n
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
-    return wall / n, _busy_share(prof, wall), top
+    return wall / n, _busy_share(prof, wall), top, ops / n
 
 
 @torch.no_grad()
@@ -1642,7 +1957,7 @@ def _decode_steps(lm, label, dev, out, profile=True):
         out.setdefault(f"{label}_b{B}", []).append(ms)
         log(f"{label} decode step, B={B}, at position 128: {ms:.3f} ms")
         if B == 1 and profile:
-            prof_ms, busy, top = profile_steps(step, 5)
+            prof_ms, busy, top, _ = profile_steps(step, 5)
             out[f"{label}_b1_profiled"] = {"ms": prof_ms, "device_busy": busy,
                                            "top_device_ms": top}
             log(f"  under the profiler {prof_ms:.3f} ms/step, device busy "
@@ -1710,7 +2025,8 @@ def main():
     log(f"device-time readings: {device_ms_report()}")
     layer = gru_layer_yardstick(dev)
     cpu = check_against_cpu(dev)
-    llms, llm_1b, cfg, launches, report = run_main_path(dev)
+    llms, llm_1b, cfg, launches, report, raw = run_main_path(dev)
+    serving, cb_counts = run_serving(dev, llms, llm_1b, cfg, report, raw)
     train = train_step_ms(cfg, dev)
     decode = decode_step_ms(llms, llm_1b, dev)
     if "jax" in sys.modules:
@@ -1719,7 +2035,8 @@ def main():
     if jax_package:
         raise AssertionError(f"the port loaded modules of the JAX package: {jax_package}")
 
-    log(json.dumps({"summary": {**report, "cpu_checks": cpu, "gru_layer": layer, **train,
+    log(json.dumps({"summary": {**report, "cpu_checks": cpu, "serving": serving,
+                                "gru_layer": layer, **train,
                                 "quant_kernel_cases": q_cases, "fused_kernel_cases": f_cases,
                                 "q8_fused_kernel_cases": q8_cases,
                                 "off_path_phase1_launches": phase1,
@@ -1730,6 +2047,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name], **rows[name],
+         "cb_launches": {phase: c[name] for phase, c in cb_counts.items()},
          **({"phase1_launches": phase1[name]} if name in phase1 else {})}
         for name in KERNEL_INFO
     ]}))

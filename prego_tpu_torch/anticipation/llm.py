@@ -8,7 +8,9 @@ stripped (llama/generation.py:233-282). Here:
   * TorchLlamaLLM (``torch-llama``): the port's LLaMA decoder on one
     device, in the single-card fused layout (wqkv, w13), bf16 on the card;
     ``quantize="int8"`` serves int8 weights (K4), ``"int8x8"`` int8 weights
-    and per-token int8 activations (K5), ``kv_quant`` an int8 KV cache (K3).
+    and per-token int8 activations (K5), ``kv_quant`` an int8 KV cache (K3);
+    ``serving="cb"`` routes every call through the continuous-batching
+    slot loop (``serving_llm.ContinuousBatcher``, ``cb_slots`` slots).
 
 Loading a Meta or HF checkpoint needs a converter that imports no jax;
 until it exists (ROADMAP) TorchLlamaLLM takes random weights at a
@@ -103,6 +105,10 @@ class TorchLlamaLLM:
         device: str = "cuda",  # raises where there is no card; "cpu" on request
         quantize=False,  # False | True/"int8" (weight-only) | "int8x8" (int8 x int8)
         kv_quant: bool = False,  # int8 KV cache
+        serving: str = "batch",  # "batch": drain-style generate (reference
+        # semantics); "cb": every text_completion through the
+        # continuous-batching slot loop (serving_llm.ContinuousBatcher)
+        cb_slots: Optional[int] = None,  # cb slot count (default max_batch_size)
     ):
         from prego_tpu_torch.models.llama import ByteTokenizer, Llama, load_tokenizer
         from prego_tpu_torch.models.llama.model import (
@@ -115,6 +121,11 @@ class TorchLlamaLLM:
         if quantize not in (False, "int8", "int8x8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (False|'int8'|'int8x8')")
         act_quant = quantize == "int8x8"
+        if serving not in ("batch", "cb"):
+            raise ValueError(f"unknown serving mode {serving!r} (batch|cb)")
+        self._serving = serving
+        self._cb_slots = cb_slots
+        self._cb = None  # built on the first cb call
         device = resolve_device(device)
         # bf16 is the serving dtype on the card; the CPU path runs f32, as
         # the JAX package does off the TPU
@@ -147,6 +158,14 @@ class TorchLlamaLLM:
             )
         self.llama = Llama(params, tokenizer, config, kv_quant=kv_quant)
 
+    def _batcher(self):
+        if self._cb is None:
+            from prego_tpu_torch.serving_llm import ContinuousBatcher
+
+            self._cb = ContinuousBatcher(
+                self.llama, slots=self._cb_slots or self.llama.config.max_batch_size)
+        return self._cb
+
     def text_completion(
         self,
         prompts: List[str],
@@ -154,6 +173,17 @@ class TorchLlamaLLM:
         temperature: float = 0.6,
         top_p: float = 0.9,
     ) -> List[Dict[str, str]]:
+        if self._serving == "cb":
+            # the anticipation dispatch (step_batch x num_samples^2 prompts
+            # sharing a long context) through the slot loop: each request
+            # retires on its own, the prefix KV shared through the LRU
+            if max_gen_len is None:
+                max_gen_len = self.llama.config.max_seq_len - 1
+            tok = self.llama.tokenizer
+            toks = [tok.encode(x, bos=True, eos=False) for x in prompts]
+            outs = self._batcher().serve_prompts(toks, max_gen_len, temperature=temperature,
+                                                 top_p=top_p)
+            return [{"generation": tok.decode(t)} for t in outs]
         return self.llama.text_completion(
             prompts, temperature=temperature, top_p=top_p,
             max_gen_len=max_gen_len, use_prefix_cache=True,  # prompts share long prefixes

@@ -3,9 +3,10 @@ prego_tpu/cli/anticipate.py).
 
 Same flags as the JAX CLI; the LLM backends here are --llm {fake,
 torch-llama}. --quantize [int8|int8x8] and --kv_quant select the quantized
-serving modes of torch-llama. The JAX package's serving options that are
-not ported yet (--serving cb, --spec_k, --orbax_dir) are accepted and
-refused with the ROADMAP item that ports them. Data assets
+serving modes of torch-llama, --serving cb [--cb_slots N] its
+continuous-batching slot loop. The JAX package's serving options that are
+not ported yet (--spec_k, --orbax_dir) are accepted and refused with the
+ROADMAP item that ports them. Data assets
 (context prompts, recognizer prediction JSONs, idx2action/idx2emoji symbol
 maps) are resolved under --data_root, which can point directly at a
 reference-layout step_anticipation/data directory.
@@ -17,6 +18,8 @@ Examples:
       --dataset synthcustom --seqs aggregated.json
   python -m prego_tpu_torch.cli.anticipate --llm torch-llama --fabricated 7b \
       --quantize int8 --kv_quant --dataset synthcustom --seqs aggregated.json
+  python -m prego_tpu_torch.cli.anticipate --llm torch-llama --fabricated 7b \
+      --serving cb --cb_slots 8 --dataset synthcustom --seqs aggregated.json
 """
 
 from __future__ import annotations
@@ -107,8 +110,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="int8 KV cache for --llm torch-llama (half the decode cache "
                         "traffic, double the context per GB)")
     p.add_argument("--serving", type=str, default="batch", choices=["batch", "cb"],
-                   help="'batch' (drain-style generate); 'cb' not ported (ROADMAP M6)")
-    p.add_argument("--cb_slots", type=int, default=None, help="not ported (ROADMAP M6)")
+                   help="torch-llama dispatch mode: 'batch' = drain-style "
+                   "generate (reference semantics); 'cb' = continuous-"
+                   "batching slot loop with prefix-sharing admission")
+    p.add_argument("--cb_slots", type=int, default=None,
+                   help="slot count for --serving cb (default max_batch_size)")
     p.add_argument("--spec_k", type=int, default=0, help="not ported (ROADMAP M7)")
     p.add_argument("--spec_draft", type=str, default=None, help="not ported (ROADMAP M7)")
     p.add_argument("--max_gen_len", type=int, default=8)
@@ -156,7 +162,6 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
         )
     unported = {
         "--orbax_dir": (args.orbax_dir, "M5, direct-int8 save and restore"),
-        "--serving cb": (args.serving == "cb", "M6"),
         "--spec_k": (args.spec_k, "M7"), "--model_name": (args.model_name, "the hf backend"),
     }
     for flag, (value, item) in unported.items():
@@ -175,6 +180,8 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
             device=args.device,
             quantize=args.quantize,
             kv_quant=args.kv_quant,
+            serving=args.serving,
+            cb_slots=args.cb_slots,
         )
     return kwargs
 

@@ -392,12 +392,13 @@ def precompute_rope(config: LlamaConfig, device="cpu") -> Tuple[torch.Tensor, to
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate adjacent pairs. x: (B, S, H, hd); cos/sin: (S, hd/2)."""
+    """Rotate adjacent pairs. x: (B, S, H, hd); cos/sin: (S, hd/2), or
+    (B, S, hd/2) per-row tables (per-row positions)."""
     B, S, H, hd = x.shape
     xf = x.float().reshape(B, S, H, hd // 2, 2)
     x0, x1 = xf[..., 0], xf[..., 1]
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    c = cos[:, :, None, :] if cos.ndim == 3 else cos[None, :, None, :]
+    s = sin[:, :, None, :] if sin.ndim == 3 else sin[None, :, None, :]
     out = torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1)
     return out.reshape(B, S, H, hd).to(x.dtype)
 
@@ -406,7 +407,8 @@ def _attention(
     p: Params,
     h: torch.Tensor,  # (B, S, D) pre-norm residual stream
     norm_weight: torch.Tensor,
-    start_pos: int,
+    where,  # where this step's K/V go in the cache (``_cache_index``)
+    mask: Optional[torch.Tensor],  # S > 1: the causal mask over the cache
     cos: torch.Tensor,
     sin: torch.Tensor,
     cache_k,  # (B, KV, T, hd) tensor or int8 {"q", "s"} leaf, written in place
@@ -417,7 +419,7 @@ def _attention(
     gates: FusionGates,
 ) -> torch.Tensor:
     """Returns h + attention(rms_norm(h)), writing this step's K/V into
-    the cache at [start_pos, start_pos + S)."""
+    the cache at ``where``."""
     B, S, D = h.shape
     H, KV, hd = config.n_heads, config.kv_heads, config.head_dim
     dense_q8 = S == 1 and gates.dense_q8  # K9's decode sites
@@ -440,12 +442,14 @@ def _attention(
     xv = xqkv[..., (H + KV) * hd :].reshape(B, S, KV, hd)
 
     kv_quant = isinstance(cache_k, dict)
+    per_row = isinstance(where, torch.Tensor)
     wo = p["wo"]
     q = xq.reshape(B, S, KV, H // KV, hd)
     k_new, v_new = xk.transpose(1, 2), xv.transpose(1, 2)  # (B, KV, S, hd)
-    # K8 and K8u: a bf16 wo small enough, over a bf16 cache
-    fuse_wo = (S == 1 and not kv_quant and not is_quantized(wo) and wo.numel() <= WO_FUSE_MAX
-               and gates.attn_wo)
+    # K8 and K8u: a bf16 wo small enough, over a bf16 cache; the JAX
+    # package keeps them to scalar positions (model.py:488, 580)
+    fuse_wo = (S == 1 and not kv_quant and not per_row and not is_quantized(wo)
+               and wo.numel() <= WO_FUSE_MAX and gates.attn_wo)
     if fuse_wo and gates.layer and gates.cache_upd:
         # the whole tail in one call: cache write, attention, wo, residual
         h_next, _, _ = decode_attention_wo_res_upd(
@@ -453,12 +457,18 @@ def _attention(
             cache_k, cache_v, pos, wo)
         return h_next
 
-    span = slice(start_pos, start_pos + S)
     for cache, new in ((cache_k, k_new), (cache_v, v_new)):
         if kv_quant:  # one scale per new position and head
-            cache["q"][:, :, span], cache["s"][:, :, span] = _kv_quantize(new)
+            nq, ns = _kv_quantize(new)
+            if per_row:  # rows of the flattened (B * KV * T, hd) cache
+                cache["q"].view(-1, hd).index_copy_(0, where, nq.reshape(-1, hd))
+                cache["s"].view(-1).index_copy_(0, where, ns.reshape(-1))
+            else:
+                cache["q"][:, :, where], cache["s"][:, :, where] = nq, ns
+        elif per_row:
+            cache.view(-1, hd).index_copy_(0, where, new.to(cache.dtype).reshape(-1, hd))
         else:
-            cache[:, :, span] = new.to(cache.dtype)
+            cache[:, :, where] = new.to(cache.dtype)
 
     if S == 1:
         # one token per row: the bounded decode kernels (K3 over int8, K8, K2)
@@ -482,16 +492,36 @@ def _attention(
         # an int8 cache is dequantized for it
         k_full = _kv_dequant(cache_k, dt) if kv_quant else cache_k
         v_full = _kv_dequant(cache_v, dt) if kv_quant else cache_v
-        T = k_full.shape[2]
         qh = q.permute(0, 2, 3, 1, 4)  # (B, KV, R, S, hd)
         scores = bmm_f32(qh, k_full[:, :, None].transpose(-1, -2)) / (hd ** 0.5)
-        q_pos = start_pos + torch.arange(S, device=h.device)[:, None]
-        k_pos = torch.arange(T, device=h.device)[None, :]
-        scores = torch.where(k_pos <= q_pos, scores, float("-inf"))
+        scores = torch.where(mask, scores, float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(dt)
         out = bmm_f32(probs, v_full[:, :, None]).to(dt)  # (B, KV, R, S, hd)
         out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
     return h + _dense(out, wo).to(dt)
+
+
+def _cache_index(start_pos, B: int, S: int, KV: int, T: int, device):
+    """Where a step writes the cache and, for S > 1, its causal mask over the
+    cache's T positions (model.py:612-636), made once per forward. Scalar:
+    the position slice and an (S, T) mask. Per row: the (B * KV * S,) rows
+    of the flattened (B * KV * T, hd) cache in (b, kv, s) order, each start
+    clamped to the cache as the JAX package's dynamic_update_slice does,
+    and a (B, 1, 1, S, T) mask at each row's own offset."""
+    per_row = isinstance(start_pos, torch.Tensor)
+    steps = torch.arange(S, device=device) if per_row or S > 1 else None
+    if per_row:
+        span = torch.clamp(start_pos.long(), 0, T - S)[:, None] + steps[None, :]  # (B, S)
+        heads = torch.arange(B * KV, device=device).view(B, KV, 1) * T
+        where = (heads + span[:, None, :]).reshape(-1)
+    else:
+        where = slice(start_pos, start_pos + S)
+    if S == 1:
+        return where, None
+    k_pos = torch.arange(T, device=device)
+    if per_row:
+        return where, (k_pos <= start_pos[:, None, None] + steps[None, :, None])[:, None, None]
+    return where, k_pos <= start_pos + steps[:, None]
 
 
 def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates) -> torch.Tensor:
@@ -534,32 +564,54 @@ def _ffn_sublayer(
 def forward(
     params: Params,
     tokens: torch.Tensor,  # (B, S) int64
-    start_pos: int,
+    start_pos,  # int, or a (B,) int32 tensor on tokens' device
     cache: Cache,
     config: LlamaConfig,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Cache]:
-    """Decoder forward at a scalar ``start_pos``. Returns (f32 logits
-    (B, S, V), the cache, updated in place)."""
+    """Decoder forward. Returns (f32 logits (B, S, V), the cache, updated
+    in place).
+
+    ``start_pos`` is a Python int (every row at the same cache offset) or
+    a (B,) tensor of per-row positions (prego_tpu/models/llama/model.py:
+    894-912), the continuous-batching path, where each slot of a shared
+    cache advances on its own: rope rows are gathered per row, the cache
+    is written per row by index, decode attention is bounded per row and
+    the masked path masks per row, all on the device (no host read). K8
+    and K8u are skipped per row, as in the JAX package; with every entry
+    equal the result is the scalar path's, bit for bit."""
     if rope is None:
         rope = precompute_rope(config, device=tokens.device)
     cos_full, sin_full = rope
     B, S = tokens.shape
-    cos = cos_full[start_pos : start_pos + S]
-    sin = sin_full[start_pos : start_pos + S]
+    per_row = isinstance(start_pos, torch.Tensor)
+    if per_row:
+        if tuple(start_pos.shape) != (B,):
+            raise ValueError(f"forward: per-row start_pos must be ({B},), got "
+                             f"{tuple(start_pos.shape)}")
+        pos_ids = start_pos.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
+        cos, sin = cos_full[pos_ids], sin_full[pos_ids]  # (B, S, hd/2)
+    else:
+        cos = cos_full[start_pos : start_pos + S]
+        sin = sin_full[start_pos : start_pos + S]
     emb = params["tok_embeddings"]
     V = emb.shape[0]
     # negative ids (the -1 pad) wrap like jnp.take's index normalisation
     h = emb[torch.where(tokens < 0, tokens + V, tokens)]
     gates = fusion_gates()  # once per call, not per layer
+    leaf = cache["k"][0]
+    T = (leaf["q"] if isinstance(leaf, dict) else leaf).shape[2]
+    where, mask = _cache_index(start_pos, B, S, config.kv_heads, T, tokens.device)
     valid = pos = None
-    if S == 1:
+    if S == 1 and per_row:  # K8u is skipped per row: no pos
+        valid = (start_pos + 1).to(torch.int32)
+    elif S == 1:
         valid = torch.full((B,), start_pos + 1, dtype=torch.int32, device=tokens.device)
         if gates.cache_upd:
             pos = torch.full((B,), start_pos, dtype=torch.int32, device=tokens.device)
     for i, layer in enumerate(params["layers"]):
         h = _attention(
-            layer["attention"], h, layer["attention_norm"], start_pos, cos, sin,
+            layer["attention"], h, layer["attention_norm"], where, mask, cos, sin,
             cache["k"][i], cache["v"][i], config, valid, pos, gates,
         )
         h = _ffn_sublayer(layer, h, config, gates)

@@ -1,9 +1,10 @@
 """The whole slice at a tiny size, port against prego_tpu: recognition
 eval JSON -> aggregation -> anticipation with the LLaMA backend (greedy,
 the same tiny weights handed over; bf16/f32, int8 and int8 x int8 weights)
--> mistake verdicts and metrics. Also drives the port's train, pipeline
-and quantized anticipate CLIs in a subprocess and checks that they never
-load jax or any module of the JAX package."""
+-> mistake verdicts and metrics, with the LLM in batch and in cb mode.
+Also drives the port's train, pipeline, quantized and cb anticipate CLIs
+and the online detector in a subprocess and checks that they never load
+jax or any module of the JAX package."""
 
 import json
 import os
@@ -153,6 +154,79 @@ def test_port_quantized_anticipate_cli_never_loads_jax(aggregated, tmp_path):
     assert report["jax_loaded"] is False
     assert report["jax_package"] == []
     assert report["samples"] == sum(len(v["pred"]) for v in agg.values())
+    assert (tmp_path / "results").exists()
+
+
+def test_cb_slice_matches_jax(aggregated):
+    """jax-llama against torch-llama on the same tiny weights, both with
+    --serving cb (the continuous-batching slot loop): the same anticipated
+    sets, verdicts and metrics, greedy, every call through the slots."""
+    agg, _ = aggregated
+    jllm = JaxLlamaLLM(ckpt_dir="", tokenizer_path="", fabricated="tiny", max_seq_len=256,
+                       serving="cb", cb_slots=4)
+    jcfg = jllm.llama.config
+    tllm = TorchLlamaLLM(
+        params=llama_from_numpy(jax.tree.map(np.asarray, jllm.llama.params)),
+        config=LlamaConfig(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__}),
+        device="cpu", serving="cb", cb_slots=4,
+    )
+    kw = dict(dataset="synthcustom", max_gen_len=6, temperature=0.0, num_samples=2)
+    want = jax_run_anticipation(agg, jllm, **kw)
+    got = run_anticipation(agg, tllm, **kw)
+    assert got.preds == want.preds and got.gts == want.gts
+    assert got.metrics == want.metrics
+    assert tllm._cb is not None and tllm.llama.decode_steps == 0
+
+
+def test_port_cb_cli_and_online_detector_never_load_jax(setup, aggregated, tmp_path):
+    """In a fresh interpreter: the port's anticipate CLI with --serving cb
+    (tiny weights, CPU), then the online multi-stream detector (the init
+    checkpoint's MiniROAD, checks through torch-llama in cb mode) over two
+    streams of frames: results come out, and neither jax nor the JAX
+    package is loaded."""
+    _, _, ckpt = setup
+    agg, agg_path = aggregated
+    code = (
+        "import sys, json\n"
+        "import numpy as np\n"
+        "from prego_tpu_torch.cli.anticipate import main\n"
+        f"r = main(['--llm', 'torch-llama', '--fabricated', 'tiny', '--serving', 'cb',\n"
+        f"          '--cb_slots', '4', '--dataset', 'synthcustom', '--seqs', {str(agg_path)!r},\n"
+        f"          '--results_root', {str(tmp_path / 'results')!r}, '--max_gen_len', '4',\n"
+        "          '--max_seq_len', '256', '--device', 'cpu'])\n"
+        "from prego_tpu_torch.anticipation import TorchLlamaLLM\n"
+        "from prego_tpu_torch.checkpoint import load_params\n"
+        "from prego_tpu_torch.checkpoint.bridge import miniroad_from_numpy\n"
+        "from prego_tpu_torch.core import RecognitionConfig\n"
+        "from prego_tpu_torch.models.miniroad import MiniROAD\n"
+        "from prego_tpu_torch.serving import MultiStreamMistakeDetector, OnlineRecognizer\n"
+        "cfg = RecognitionConfig.from_dict({'rgb_type': 'rgb_kinetics_bninception',\n"
+        "    'flow_type': 'flow_anet_resnet50', 'embedding_dim': 48, 'hidden_dim': 32,\n"
+        "    'num_layers': 1, 'num_classes': 5, 'dropout': 0.0})\n"
+        "model = MiniROAD(cfg)\n"
+        f"params = miniroad_from_numpy(load_params({str(ckpt)!r}))\n"
+        "llm = TorchLlamaLLM(fabricated='tiny', serving='cb', max_seq_len=256, device='cpu')\n"
+        "det = MultiStreamMistakeDetector(OnlineRecognizer(model, params, batch=2, device='cpu'),\n"
+        "    llm, window_size=8, temperature=0.0, max_gen_len=3)\n"
+        "frames = np.random.default_rng(0).normal(0, 1, (40, 2, model.rgb_dim)).astype(np.float32)\n"
+        "for t0 in range(0, 40, 16):\n"
+        "    det.push_frames(frames[t0:t0 + 16])\n"
+        "det.finish()\n"
+        "jax_pkg = sorted(m for m in sys.modules if m == 'prego_tpu' or m.startswith('prego_tpu.'))\n"
+        "print(json.dumps({'jax_loaded': 'jax' in sys.modules, 'jax_package': jax_pkg,\n"
+        "                  'samples': r.metrics['samples'], 'frames': det.frame_index,\n"
+        "                  'events': sum(len(e) for e in det.events)}))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("PREGO_PLATFORM", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["jax_loaded"] is False
+    assert report["jax_package"] == []
+    assert report["samples"] == sum(len(v["pred"]) for v in agg.values())
+    assert report["frames"] == [40, 40] and report["events"] >= 2
     assert (tmp_path / "results").exists()
 
 
