@@ -54,6 +54,24 @@
    on no path, shows its phase-1 launches instead); the
    trained checkpoint's mAP must beat the untrained model's, and the
    training loss must fall.
+   Then the serving phases (a)-(f): the per-row forward, anticipation and
+   prefix-sharing bursts through the continuous batcher, cb greedy parity
+   and online detection, each phase's kernel counts from 0.
+   (g) Speculative decoding at 7B full depth, k 4, 32 new tokens, greedy,
+   at B 1 and 8 on the anticipation loop's first prompts, in bf16 and in int8 + int8
+   KV with the int8 stack: plain ``generate``, a self-8 draft, a replay of
+   plain greedy's tokens and a replay of the speculative path's own
+   tokens (acceptance >= 0.95), every row equal to plain greedy up to a
+   near-tie; wall per generated token, rounds, accepted / proposed and the
+   host's one read a round; the verify's attention cost; 8 anticipation calls
+   through torch-llama (spec_k 4, self-8) against the batch pass; a
+   sampled run that trips the auto-off guard. K2, K7a, K3, K9 and K7q must
+   launch, K8 and K8u must not. (h) A 2-layer cut at 7B width from seeded
+   weights written as a Meta checkpoint in two fairscale shards, loaded
+   through torch-llama (ckpt_dir, the byte tokenizer): the logits of a
+   64-token prefill and 8 decode steps equal those of the same weights
+   handed over through params=, bit for bit, in bf16 and int8; the load's
+   wall.
 4. Times train steps (host clock, and the device busy share of a few under
    torch.profiler), 7B decode steps at batch 1 and 8 in the three modes,
    the 7B int8 + int8 KV step with the int8 fusion gates off and on in
@@ -185,6 +203,12 @@ FUSED_WO = ("decode_attention_wo", "decode_attention_wo_res_upd")
 NEAR_TIE = 2.0 ** -6
 # online detection: frames a block for each stream
 ONLINE_BLOCK = 256
+# speculative decoding (g): drafts a round, new tokens a request
+SPEC_K = 4
+SPEC_GEN = 32
+# an oracle that replays the speculative path's own greedy tokens: only the
+# budget's end may leave a draft unjudged
+ORACLE_MIN_ACCEPT = 0.95
 # 7B projections (K, N) at decode: wqkv, wo, w13, w2 and the lm-head
 PROJ_7B = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
            "w2": (11008, 4096), "lm_head": (4096, 32000)}
@@ -1851,7 +1875,315 @@ def run_serving(dev, llms, llm_1b, cfg, report, raw):
         raise AssertionError(f"online ids or sequences disagree: {agree}, {same_seq}")
     if events <= 0:
         raise AssertionError("online detection raised no event")
+    return out, counts, sent
+
+
+# ---- 3c. speculative decoding and the checkpoint load ----
+
+@torch.no_grad()
+def near_tie_gaps(lm, prompts, want, got):
+    """For each row whose tokens ``got`` differ from ``want`` (plain greedy),
+    the top-2 gap of the plain model's logits at the first differing
+    position, and whether it is a near-tie (NEAR_TIE of the row's largest
+    |logit|); the rows that are equal are left out."""
+    from prego_tpu_torch.models.llama.model import forward, init_cache
+
+    gaps = []
+    for i, (p, w, g) in enumerate(zip(prompts, want, got)):
+        if w == g:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(w, g)) if a != b), min(len(w), len(g)))
+        ctx = torch.tensor([list(p) + w[:j]], device=lm.device)
+        logits, _ = forward(lm.params, ctx, 0,
+                            init_cache(lm.config, 1, lm.dtype, lm.device, quantized=lm.kv_quant),
+                            lm.config, lm.rope)
+        row = logits[0, -1].float()
+        top2 = row.topk(2).values
+        gap, scale = float(top2[0] - top2[1]), float(row.abs().max())
+        gaps.append({"row": i, "position": j, "top2_gap": gap, "max_abs_logit": scale,
+                     "near_tie": gap <= NEAR_TIE * scale})
+    return gaps
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spec_runs(lm, prompts, label, gen_len=SPEC_GEN):
+    """Plain greedy ``generate`` and three speculative runs, each at B 1 and
+    B 8 (k SPEC_K, ``gen_len`` new tokens): the self-8 draft, an oracle
+    that replays plain greedy's tokens, and an oracle that replays the
+    speculative path's own greedy tokens (the self-8 run's; given the same
+    rows, k and shapes the target's logits at a position depend only on
+    the tokens before it, not on the draft). Wall per generated token,
+    rounds, accepted / proposed, the host's reads and their wait. Every
+    row must equal plain greedy up to a near-tie (the verify and plain
+    decode round near-ties apart, and a plain-greedy replay loses its row
+    after the first such flip), and the replay of the speculative path's
+    own tokens must reach ORACLE_MIN_ACCEPT."""
+    from prego_tpu_torch.models.llama.speculative import SpeculativeLlama, self_draft
+
+    out = {}
+    # the shapes' first calls, outside the counts
+    lm.generate([prompts[0]], 4, temperature=0.0)
+    SpeculativeLlama(lm, *self_draft(lm.params, lm.config, 8), k=SPEC_K).generate(
+        [prompts[0]], 8, temperature=0.0)
+    for B in (1, 8):
+        ps = prompts[:B]
+        (want, _), wall = _timed(lambda: lm.generate(ps, gen_len, temperature=0.0))
+        n_tok = sum(len(w) for w in want)
+        res = {"plain": {"wall_s": wall, "tokens": n_tok, "ms_per_token": wall * 1e3 / n_tok}}
+        # each replay runs k tokens past the budget, so that the last
+        # round's drafts are known too
+        replay = {"oracle_plain": lm.generate(ps, gen_len + SPEC_K, temperature=0.0)[0]}
+        self8 = lambda: SpeculativeLlama(lm, *self_draft(lm.params, lm.config, 8), k=SPEC_K)
+        replay["oracle_spec"] = self8().generate(ps, gen_len + SPEC_K, temperature=0.0)
+        runs = {"self-8": self8(), "oracle_plain": SpeculativeLlama(lm, k=SPEC_K),
+                "oracle_spec": SpeculativeLlama(lm, k=SPEC_K)}
+        for name, spec in runs.items():
+            kw = ({"oracle_tokens": [p + w for p, w in zip(ps, replay[name])]}
+                  if name in replay else {})
+            got, wall = _timed(lambda: spec.generate(ps, gen_len, temperature=0.0, **kw))
+            gaps = near_tie_gaps(lm, ps, want, got)
+            acc = spec.drafts_accepted / max(spec.drafts_proposed, 1)
+            res[name] = {"wall_s": wall, "ms_per_token": wall * 1e3 / max(sum(map(len, got)), 1),
+                         "rounds": spec.rounds, "accepted": spec.drafts_accepted,
+                         "proposed": spec.drafts_proposed, "acceptance": acc,
+                         "host_reads": spec.host_reads,
+                         "read_wait_ms_per_read": spec.read_wait_s * 1e3 / max(spec.host_reads, 1),
+                         "rows_equal_to_plain": B - len(gaps), "mismatches": gaps}
+            if name == "self-8":
+                res[name]["tokens"] = got
+            if not all(g["near_tie"] for g in gaps):
+                raise AssertionError(f"{label} {name} B {B}: speculative output differs from "
+                                     f"plain greedy beyond a near-tie: {gaps}")
+        res["oracle_spec"]["equal_to_self8"] = res["self-8"].pop("tokens") == [
+            r[:len(w)] for r, w in zip(replay["oracle_spec"], want)]
+        for name in runs:
+            res[f"{name}_over_plain"] = res[name]["ms_per_token"] / res["plain"]["ms_per_token"]
+        log(f"(g) {label}, B {B}, k {SPEC_K}, {gen_len} new tokens: ms per token plain "
+            f"{res['plain']['ms_per_token']:.3f}; "
+            + "; ".join(f"{n} {res[n]['ms_per_token']:.3f} (acceptance {res[n]['accepted']}/"
+                        f"{res[n]['proposed']}, {res[n]['rounds']} rounds)" for n in runs)
+            + f"; {json.dumps(res)}")
+        acc = res["oracle_spec"]["acceptance"]
+        if acc < ORACLE_MIN_ACCEPT:
+            raise AssertionError(f"{label} B {B}: the replay of the speculative path's own tokens "
+                                 f"accepted {acc:.4f} < {ORACLE_MIN_ACCEPT}")
+        out[f"b{B}"] = res
+    return out
+
+
+@torch.no_grad()
+def verify_attention_cost(lm, dev, B=8):
+    """The verify forward's attention at B 8, S k+1 over the speculative
+    cache (T max_seq_len + 256) for one layer, on the prefill path it
+    takes: f32 scores over the whole T, masked softmax, the product with V;
+    under an int8 cache the dequantized bf16 copy of K and V first.
+    Returns its ms a layer (CUDA events), the bytes it moves, and the ms of
+    a whole verify forward and of a decode step at B 8."""
+    from prego_tpu_torch.models.llama.model import (
+        _cache_index, _kv_dequant, forward, init_cache,
+    )
+    from prego_tpu_torch.models.llama.speculative import _cache_spare
+    from prego_tpu_torch.ops.dense import bmm_f32
+
+    cfg = lm.config
+    S, KV, hd = SPEC_K + 1, cfg.kv_heads, cfg.head_dim
+    spare = _cache_spare(cfg, SPEC_K)
+    cache = init_cache(cfg, B, lm.dtype, dev, quantized=lm.kv_quant, spare=spare)
+    T = cfg.max_seq_len + spare
+    toks = torch.randint(0, 256, (B, 384), device=dev)
+    forward(lm.params, toks, 0, cache, cfg, lm.rope)  # 384 positions filled
+    pos = torch.full((B,), 383, dtype=torch.int32, device=dev)
+    _, mask = _cache_index(pos, B, S, KV, T, dev)
+    q = torch.randn(B, KV, cfg.n_heads // KV, S, hd, device=dev, dtype=lm.dtype)
+    ck, cv = cache["k"][0], cache["v"][0]
+
+    def attention():
+        k = _kv_dequant(ck, lm.dtype) if lm.kv_quant else ck
+        v = _kv_dequant(cv, lm.dtype) if lm.kv_quant else cv
+        scores = bmm_f32(q, k[:, :, None].transpose(-1, -2)) / (hd ** 0.5)
+        probs = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1).to(lm.dtype)
+        return bmm_f32(probs, v[:, :, None])
+
+    ms = time_ms(attention, 20)
+    leaf = nbytes(*(ck.values() if lm.kv_quant else [ck]))
+    moved = 2 * leaf + (2 * 2 * 2 * B * KV * T * hd if lm.kv_quant else 0)  # + the bf16 copy
+    fed = toks[:, :S]
+    verify_ms = time_ms(lambda: forward(lm.params, fed, pos, cache, cfg, lm.rope), 10)
+    step_ms = time_ms(lambda: forward(lm.params, fed[:, :1], pos, cache, cfg, lm.rope), 10)
+    del cache
+    torch.cuda.empty_cache()
+    return {"attention_ms_per_layer": ms, "attention_ms_per_verify": ms * cfg.n_layers,
+            "attention_bytes_per_layer": moved, "T": T, "verify_forward_ms": verify_ms,
+            "decode_step_ms": step_ms}
+
+
+def run_speculative(dev, llms, sent):
+    """(g) Speculative decoding at 7B full depth: plain, oracle and self-8
+    at B 1 and 8 in bf16 and in int8 + int8 KV with the int8 stack, the
+    verify's attention cost, 8 anticipation calls through torch-llama with a
+    self-8 draft against the batch pass, and a sampled run that trips the
+    auto-off guard; the kernels' counts from 0 over the phase."""
+    from prego_tpu_torch.anticipation.llm import TorchLlamaLLM
+
+    tok = llms["bf16"].llama.tokenizer
+    prompts = [tok.encode(p, bos=True, eos=False) for call, _ in sent[:8] for p in call][:8]
+    if len(prompts) < 8:
+        raise AssertionError("(g) needs 8 anticipation prompts")
+    out = {}
+
+    def phase():
+        lm = llms["bf16"].llama
+        out["bf16"] = spec_runs(lm, prompts, "7B bf16")
+        out["bf16"]["verify_attention"] = verify_attention_cost(lm, dev)
+        kv8 = llms["int8_kv8"].llama
+        with gate_env(Q8_STACK):
+            out["int8_kv8_q8"] = spec_runs(kv8, prompts, "7B int8 + int8 KV, int8 stack")
+            out["int8_kv8_q8"]["verify_attention"] = verify_attention_cost(kv8, dev)
+        # 8 anticipation calls through the entry point, greedy, prefix cache on,
+        # against the batch pass's answers to the same calls
+        spec_llm = TorchLlamaLLM(params=lm.params, config=lm.config, device=dev, spec_k=SPEC_K,
+                                 spec_draft="self-8")
+        toks = {"spec": [], "plain": []}  # the token ids behind each completion
+
+        def recording(obj, sink):
+            orig = obj.generate_with_prefix_cache
+
+            def wrapped(*args, **kw):
+                res = orig(*args, **kw)
+                sink.extend(res)
+                return res
+            obj.generate_with_prefix_cache = wrapped
+
+        recording(spec_llm._speculator(), toks["spec"])
+        recording(lm, toks["plain"])
+        walls = {}
+        for name, llm_ in (("plain", llms["bf16"]), ("spec", spec_llm)):
+            _, walls[name] = _timed(lambda: [llm_.text_completion(c, **dict(kw, temperature=0.0))
+                                             for c, kw in sent[:8]])
+        for obj in (spec_llm._spec, lm):
+            del obj.generate_with_prefix_cache  # the class's method again
+        gaps = near_tie_gaps(lm, prompts, toks["plain"], toks["spec"])
+        sp = spec_llm._spec
+        out["anticipation_calls"] = {
+            "calls": 8, "plain_s_per_call": walls["plain"] / 8, "spec_s_per_call": walls["spec"] / 8,
+            "rounds": sp.rounds, "accepted": sp.drafts_accepted, "proposed": sp.drafts_proposed,
+            "rows_equal": 8 - len(gaps), "mismatches": gaps}
+        log(f"(g) 8 anticipation calls, torch-llama spec_k {SPEC_K} self-8 vs the batch pass, greedy: "
+            f"{json.dumps(out['anticipation_calls'])}")
+        if not all(g["near_tie"] for g in gaps):
+            raise AssertionError(f"(g) anticipation calls differ beyond a near-tie: {gaps}")
+        # sampled, a fresh adapter: the guard judges after 256 proposals
+        guard = TorchLlamaLLM(params=lm.params, config=lm.config, device=dev, spec_k=SPEC_K,
+                              spec_draft="self-8")
+        for _ in range(4):  # 8 rows x 16 tokens x k proposals a call at acceptance ~0
+            guard.text_completion([c[0] for c, _ in sent[:8]], max_gen_len=16, temperature=0.6)
+            if guard._spec_disabled:
+                break
+        g = guard._spec
+        before = g.drafts_proposed
+        guard.text_completion([sent[0][0][0]], max_gen_len=8, temperature=0.6)
+        out["auto_off"] = {"disabled": guard._spec_disabled, "accepted": g.drafts_accepted,
+                           "proposed": before, "proposed_after_next_call": g.drafts_proposed}
+        log(f"(g) sampled run, self-8, temperature 0.6: {json.dumps(out['auto_off'])}")
+        if not (guard._spec_disabled and before >= 256 and g.drafts_proposed == before):
+            raise AssertionError(f"(g) the auto-off guard did not trip: {out['auto_off']}")
+
+    _, counts, wall = count_launches(phase)
+    out["wall_s"] = wall
+    check_launched("(g) speculative", counts, ("decode_attention", "fused_ffn_block",
+                                               "decode_attention_q8", "fused_dense_q8",
+                                               "fused_ffn_block_q8"))
     return out, counts
+
+
+def write_meta_checkpoint(params, config, path: Path, n_shards=2):
+    """The port's unfused tree as a Meta checkpoint: params.json and
+    ``consolidated.0N.pth`` shards split the fairscale way (column-parallel
+    weights along torch dim 0, row-parallel ones and the embedding along
+    dim 1, norms replicated), torch (out, in) layout."""
+    state = {"tok_embeddings.weight": params["tok_embeddings"], "norm.weight": params["norm"],
+             "output.weight": params["output"].t()}
+    for i, layer in enumerate(params["layers"]):
+        for blk in ("attention", "feed_forward"):
+            for k, w in layer[blk].items():
+                state[f"layers.{i}.{blk}.{k}.weight"] = w.t()
+        state[f"layers.{i}.attention_norm.weight"] = layer["attention_norm"]
+        state[f"layers.{i}.ffn_norm.weight"] = layer["ffn_norm"]
+    shards = [dict() for _ in range(n_shards)]
+    for key, w in state.items():
+        leaf = key.rsplit(".", 2)[-2]
+        dim = (1 if key == "tok_embeddings.weight" or leaf in ("wo", "w2") else
+               0 if leaf in ("wq", "wk", "wv", "w1", "w3", "output") else None)
+        chunks = [w] * n_shards if dim is None else torch.chunk(w, n_shards, dim=dim)
+        for shard, c in zip(shards, chunks):
+            shard[key] = c.contiguous().cpu()
+    path.mkdir(parents=True, exist_ok=True)
+    for i, shard in enumerate(shards):
+        torch.save(shard, path / f"consolidated.{i:02d}.pth")
+    (path / "params.json").write_text(json.dumps({
+        "dim": config.dim, "n_layers": config.n_layers, "n_heads": config.n_heads,
+        "multiple_of": config.multiple_of, "norm_eps": config.norm_eps, "vocab_size": -1}))
+
+
+@torch.no_grad()
+def run_checkpoint_load(dev):
+    """(h) A 2-layer cut at 7B width from seeded random weights, written as
+    a Meta directory in two shards, loaded through torch-llama on the card:
+    the logits of a 64-token prefill and 8 decode steps equal, bit for bit,
+    those of the same weights handed over through params=, in bf16 and
+    under quantize="int8"."""
+    from prego_tpu_torch.anticipation.llm import TorchLlamaLLM, fabricated_config
+    from prego_tpu_torch.models.llama.model import forward, init_params
+
+    cfg = fabricated_config("7b", max_seq_len=512, max_batch_size=8, n_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    # the serving dtype of TorchLlamaLLM on the device
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    params = init_params(cfg, gen, dtype=dtype, device=dev)
+    path = WORK / "ckpt_7b_2layers"
+    _, write_s = _timed(lambda: write_meta_checkpoint(params, cfg, path))
+    toks = torch.randint(0, 256, (2, 64), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    out = {"write_s": write_s, "bytes_on_disk": sum(p.stat().st_size for p in path.glob("*.pth"))}
+
+    def logits_of(llm):
+        lm = llm.llama
+        cache = lm._new_cache(2)
+        logit, _ = forward(lm.params, toks, 0, cache, lm.config, lm.rope)
+        seq = [logit]
+        nxt = logit[:, -1].argmax(-1)
+        for i in range(8):
+            logit, _ = forward(lm.params, nxt[:, None], 64 + i, cache, lm.config, lm.rope)
+            seq.append(logit)
+            nxt = logit[:, -1].argmax(-1)
+        return seq
+
+    for mode in (False, "int8"):
+        loaded, wall = _timed(lambda: TorchLlamaLLM(ckpt_dir=str(path), tokenizer_path="byte",
+                                                    max_seq_len=512, max_batch_size=8,
+                                                    device=dev, quantize=mode))
+        bridged = TorchLlamaLLM(params=params, config=loaded.llama.config, device=dev,
+                                quantize=mode)
+        equal = all(torch.equal(a, b) for a, b in zip(logits_of(loaded), logits_of(bridged)))
+        name = mode or "bf16"
+        out[name] = {"load_s": wall, "logits_equal": equal}
+        log(f"(h) checkpoint load, 7B width x 2 layers, 2 Meta shards ({out['bytes_on_disk']} "
+            f"bytes), {name}: load {wall:.3f}s; prefill 64 + 8 decode steps equal to the bridged "
+            f"tree's bit for bit: {equal}")
+        if not equal:
+            raise AssertionError(f"(h) the loaded checkpoint ({name}) differs from the bridged tree")
+        del loaded, bridged
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---- 4. train step and decode step times ----
@@ -2026,7 +2358,9 @@ def main():
     layer = gru_layer_yardstick(dev)
     cpu = check_against_cpu(dev)
     llms, llm_1b, cfg, launches, report, raw = run_main_path(dev)
-    serving, cb_counts = run_serving(dev, llms, llm_1b, cfg, report, raw)
+    serving, cb_counts, sent = run_serving(dev, llms, llm_1b, cfg, report, raw)
+    spec, spec_counts = run_speculative(dev, llms, sent)
+    ckpt = run_checkpoint_load(dev)
     train = train_step_ms(cfg, dev)
     decode = decode_step_ms(llms, llm_1b, dev)
     if "jax" in sys.modules:
@@ -2036,6 +2370,7 @@ def main():
         raise AssertionError(f"the port loaded modules of the JAX package: {jax_package}")
 
     log(json.dumps({"summary": {**report, "cpu_checks": cpu, "serving": serving,
+                                "speculative": spec, "checkpoint_load": ckpt,
                                 "gru_layer": layer, **train,
                                 "quant_kernel_cases": q_cases, "fused_kernel_cases": f_cases,
                                 "q8_fused_kernel_cases": q8_cases,
@@ -2048,6 +2383,7 @@ def main():
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name], **rows[name],
          "cb_launches": {phase: c[name] for phase, c in cb_counts.items()},
+         "spec_launches": spec_counts[name],
          **({"phase1_launches": phase1[name]} if name in phase1 else {})}
         for name in KERNEL_INFO
     ]}))

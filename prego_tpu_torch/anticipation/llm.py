@@ -10,16 +10,26 @@ stripped (llama/generation.py:233-282). Here:
     ``quantize="int8"`` serves int8 weights (K4), ``"int8x8"`` int8 weights
     and per-token int8 activations (K5), ``kv_quant`` an int8 KV cache (K3);
     ``serving="cb"`` routes every call through the continuous-batching
-    slot loop (``serving_llm.ContinuousBatcher``, ``cb_slots`` slots).
+    slot loop (``serving_llm.ContinuousBatcher``, ``cb_slots`` slots);
+    ``spec_k`` with ``spec_draft`` decodes speculatively
+    (``models/llama/speculative.py``) on the batch path.
 
-Loading a Meta or HF checkpoint needs a converter that imports no jax;
-until it exists (ROADMAP) TorchLlamaLLM takes random weights at a
-reference shape (``fabricated=``) or parameters handed over through
-``checkpoint/bridge.py`` (``params=`` with ``config=``).
+TorchLlamaLLM takes its weights from a Meta checkpoint directory
+(``params.json`` and ``consolidated.*.pth``) or an HF export
+(``config.json`` and safetensors or ``pytorch_model*.bin``) through
+``checkpoint/convert.py`` (``ckpt_dir=`` with ``tokenizer_path=``), as
+random weights at a reference shape (``fabricated=``), or as parameters
+handed over through ``checkpoint/bridge.py`` (``params=`` with
+``config=``). A converted tree is fused (wqkv, w13) and, under
+``quantize``, quantized on the device it serves from.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import os.path as osp
+import sys
 from typing import Callable, Dict, List, Optional, Protocol
 
 import torch
@@ -89,6 +99,36 @@ def fabricated_config(shape: str, max_seq_len: int, max_batch_size: int, n_layer
     )
 
 
+def load_checkpoint_dir(ckpt_dir: str, tokenizer, max_seq_len: int, max_batch_size: int,
+                        dtype, device):
+    """(unfused params, LlamaConfig) of a Meta directory (``params.json``,
+    the vocabulary from the tokenizer) or an HF export (``config.json``),
+    built on ``device`` (the JAX adapter's checkpoint branch,
+    prego_tpu/anticipation/llm.py:269-340, without Orbax or tp)."""
+    from prego_tpu_torch.checkpoint.convert import convert_hf_checkpoint, convert_meta_checkpoint
+    from prego_tpu_torch.models.llama.config import LlamaConfig
+
+    if not osp.isdir(ckpt_dir):
+        raise FileNotFoundError(
+            f"ckpt_dir {ckpt_dir!r} does not exist (expected a Meta checkpoint dir with "
+            "params.json or an HF export with config.json)")
+    if osp.exists(osp.join(ckpt_dir, "params.json")):
+        config = LlamaConfig.from_params_json(ckpt_dir, max_seq_len=max_seq_len,
+                                              max_batch_size=max_batch_size,
+                                              vocab_size=tokenizer.n_words)
+        return convert_meta_checkpoint(ckpt_dir, config, dtype, device), config
+    with open(osp.join(ckpt_dir, "config.json")) as f:
+        hf = json.load(f)
+    config = LlamaConfig(
+        dim=hf["hidden_size"], n_layers=hf["num_hidden_layers"],
+        n_heads=hf["num_attention_heads"], n_kv_heads=hf.get("num_key_value_heads"),
+        vocab_size=hf["vocab_size"], norm_eps=hf.get("rms_norm_eps", 1e-5),
+        rope_theta=hf.get("rope_theta", 10000.0), max_seq_len=max_seq_len,
+        max_batch_size=max_batch_size,
+    )
+    return convert_hf_checkpoint(ckpt_dir, config, dtype, device), config
+
+
 @LLMS.register("torch-llama")
 class TorchLlamaLLM:
     """The port's LLaMA backend (the counterpart of ``jax-llama``)."""
@@ -109,6 +149,12 @@ class TorchLlamaLLM:
         # semantics); "cb": every text_completion through the
         # continuous-batching slot loop (serving_llm.ContinuousBatcher)
         cb_slots: Optional[int] = None,  # cb slot count (default max_batch_size)
+        spec_k: int = 0,  # > 0: speculative decoding with k-token drafts; greedy
+        # output equals the plain path's for any draft, sampled output keeps
+        # its distribution
+        spec_draft: Optional[str] = None,  # "self-N" (the target's first N
+        # layers, its own tensors), "fabricated-1b" / "fabricated-tiny"
+        # (random weights: acceptance ~0), or a Meta checkpoint dir
     ):
         from prego_tpu_torch.models.llama import ByteTokenizer, Llama, load_tokenizer
         from prego_tpu_torch.models.llama.model import (
@@ -123,14 +169,47 @@ class TorchLlamaLLM:
         act_quant = quantize == "int8x8"
         if serving not in ("batch", "cb"):
             raise ValueError(f"unknown serving mode {serving!r} (batch|cb)")
+        if spec_k and serving == "cb":
+            raise ValueError("speculative decoding rides the batch path (spec_k is "
+                             "incompatible with --serving cb)")
+        if bool(spec_k) != (spec_draft is not None):
+            raise ValueError("spec_k and spec_draft must be set together")
         self._serving = serving
         self._cb_slots = cb_slots
         self._cb = None  # built on the first cb call
+        self._spec_k = int(spec_k)
+        self._spec_draft = spec_draft
+        self._spec = None  # built on the first call
+        # the guard of the JAX adapter (prego_tpu/anticipation/llm.py:
+        # 233-262): once 256 proposals have been judged, an acceptance below
+        # PREGO_SPEC_MIN_ACCEPT (default 1/k; 0 turns the guard off) sends
+        # the rest of the run to the plain path
+        self._spec_disabled = False
+        default = 1.0 / spec_k if spec_k else 0.0
+        env = os.environ.get("PREGO_SPEC_MIN_ACCEPT")
+        try:
+            self._spec_min_accept = float(env) if env is not None else default
+        except ValueError:
+            print(f"prego_tpu_torch: ignoring unparsable PREGO_SPEC_MIN_ACCEPT={env!r}; "
+                  "using 1/k", file=sys.stderr)
+            self._spec_min_accept = default
         device = resolve_device(device)
+        self.device = device
         # bf16 is the serving dtype on the card; the CPU path runs f32, as
         # the JAX package does off the TPU
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-        tokenizer = load_tokenizer(tokenizer_path) if tokenizer_path else ByteTokenizer()
+        self.dtype = dtype
+        if ckpt_dir is not None and params is None and fabricated is None:
+            if not tokenizer_path:
+                raise ValueError("ckpt_dir= needs tokenizer_path= (a tokenizer file, or 'byte')")
+            tokenizer = load_tokenizer(tokenizer_path)
+            # converted, fused and quantized on the serving device: the card
+            # holds a 7B bf16 tree beside its int8 copy, and does the
+            # transposes and the quantization far faster than the host
+            params, config = load_checkpoint_dir(ckpt_dir, tokenizer, max_seq_len,
+                                                 max_batch_size, dtype, device)
+        else:
+            tokenizer = load_tokenizer(tokenizer_path) if tokenizer_path else ByteTokenizer()
         if params is not None:
             if config is None:
                 raise ValueError("params= needs config=")
@@ -152,11 +231,41 @@ class TorchLlamaLLM:
             else:
                 params = fuse_projections(init_params(config, gen, dtype=dtype, device=device))
         else:
-            raise NotImplementedError(
-                f"loading {ckpt_dir!r}: converting a Meta/HF checkpoint without jax "
-                "is not ported yet (ROADMAP); use fabricated= or params="
-            )
+            raise ValueError("TorchLlamaLLM needs ckpt_dir=, fabricated= or params=")
         self.llama = Llama(params, tokenizer, config, kv_quant=kv_quant)
+
+    def _speculator(self):
+        """The SpeculativeLlama of ``spec_draft`` over this model, built once."""
+        if self._spec is None:
+            from prego_tpu_torch.checkpoint.convert import convert_meta_checkpoint
+            from prego_tpu_torch.models.llama.config import LlamaConfig
+            from prego_tpu_torch.models.llama.model import fuse_projections, init_params
+            from prego_tpu_torch.models.llama.speculative import SpeculativeLlama, self_draft
+
+            cfg, draft = self.llama.config, self._spec_draft
+            if draft.startswith("self-"):
+                # the target's first N layers, its own tensors: no weight copied
+                d_params, d_cfg = self_draft(self.llama.params, cfg, int(draft[len("self-"):]))
+            elif draft.startswith("fabricated-"):
+                s = FABRICATED_SHAPES[draft[len("fabricated-"):]]
+                d_cfg = LlamaConfig(
+                    dim=s["dim"], n_layers=s["n_layers"], n_heads=s["n_heads"],
+                    n_kv_heads=s["n_heads"], vocab_size=cfg.vocab_size,
+                    multiple_of=256 if s["dim"] >= 256 else 16, norm_eps=1e-5,
+                    max_batch_size=cfg.max_batch_size, max_seq_len=cfg.max_seq_len,
+                )
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(11)
+                d_params = fuse_projections(init_params(d_cfg, gen, dtype=self.dtype,
+                                                        device=self.device))
+            else:  # a Meta checkpoint dir: the target's vocabulary
+                d_cfg = LlamaConfig.from_params_json(
+                    draft, max_seq_len=cfg.max_seq_len, max_batch_size=cfg.max_batch_size,
+                    vocab_size=cfg.vocab_size)
+                d_params = fuse_projections(convert_meta_checkpoint(draft, d_cfg, self.dtype,
+                                                                     self.device))
+            self._spec = SpeculativeLlama(self.llama, d_params, d_cfg, k=self._spec_k)
+        return self._spec
 
     def _batcher(self):
         if self._cb is None:
@@ -184,6 +293,23 @@ class TorchLlamaLLM:
             outs = self._batcher().serve_prompts(toks, max_gen_len, temperature=temperature,
                                                  top_p=top_p)
             return [{"generation": tok.decode(t)} for t in outs]
+        if self._spec_k and not self._spec_disabled:
+            spec = self._speculator()
+            out = spec.text_completion(prompts, temperature=temperature, top_p=top_p,
+                                       max_gen_len=max_gen_len, use_prefix_cache=True)
+            # the auto-off guard, judged once 256 proposals are in
+            if (self._spec_min_accept > 0 and spec.drafts_proposed >= 256
+                    and spec.drafts_accepted < self._spec_min_accept * spec.drafts_proposed):
+                self._spec_disabled = True
+                print(
+                    "prego_tpu_torch: speculative decoding auto-disabled — acceptance "
+                    f"{spec.drafts_accepted}/{spec.drafts_proposed} = "
+                    f"{spec.drafts_accepted / spec.drafts_proposed:.3f} is below break-even "
+                    f"(~{self._spec_min_accept:.2f} at k={self._spec_k}); continuing on the "
+                    "plain path (PREGO_SPEC_MIN_ACCEPT=0 disables this guard)",
+                    file=sys.stderr,
+                )
+            return out
         return self.llama.text_completion(
             prompts, temperature=temperature, top_p=top_p,
             max_gen_len=max_gen_len, use_prefix_cache=True,  # prompts share long prefixes

@@ -4,8 +4,10 @@ prego_tpu/cli/anticipate.py).
 Same flags as the JAX CLI; the LLM backends here are --llm {fake,
 torch-llama}. --quantize [int8|int8x8] and --kv_quant select the quantized
 serving modes of torch-llama, --serving cb [--cb_slots N] its
-continuous-batching slot loop. The JAX package's serving options that are
-not ported yet (--spec_k, --orbax_dir) are accepted and refused with the
+continuous-batching slot loop, --spec_k K --spec_draft D speculative
+decoding, and --ckpt_dir with --tokenizer_path a Meta or HF checkpoint in
+place of --fabricated weights. The JAX package's options that are not
+ported yet (--orbax_dir, --model_name) are accepted and refused with the
 ROADMAP item that ports them. Data assets
 (context prompts, recognizer prediction JSONs, idx2action/idx2emoji symbol
 maps) are resolved under --data_root, which can point directly at a
@@ -20,6 +22,11 @@ Examples:
       --quantize int8 --kv_quant --dataset synthcustom --seqs aggregated.json
   python -m prego_tpu_torch.cli.anticipate --llm torch-llama --fabricated 7b \
       --serving cb --cb_slots 8 --dataset synthcustom --seqs aggregated.json
+  python -m prego_tpu_torch.cli.anticipate --llm torch-llama --fabricated 7b \
+      --spec_k 4 --spec_draft self-8 --dataset synthcustom --seqs aggregated.json
+  python -m prego_tpu_torch.cli.anticipate --llm torch-llama \
+      --ckpt_dir llama-2-7b --tokenizer_path tokenizer.model --quantize int8 \
+      --dataset synthcustom --seqs aggregated.json
 """
 
 from __future__ import annotations
@@ -115,8 +122,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    "batching slot loop with prefix-sharing admission")
     p.add_argument("--cb_slots", type=int, default=None,
                    help="slot count for --serving cb (default max_batch_size)")
-    p.add_argument("--spec_k", type=int, default=0, help="not ported (ROADMAP M7)")
-    p.add_argument("--spec_draft", type=str, default=None, help="not ported (ROADMAP M7)")
+    p.add_argument("--spec_k", type=int, default=0,
+                   help="speculative decoding with k-token drafts "
+                   "(models/llama/speculative.py); needs --spec_draft")
+    p.add_argument("--spec_draft", type=str, default=None,
+                   help="draft model: 'self-N' (first N target layers, "
+                   "shared weights — zero extra device memory), 'fabricated-1b'/"
+                   "'fabricated-tiny' (random weights — machinery demo), "
+                   "or a Meta ckpt dir")
     p.add_argument("--max_gen_len", type=int, default=8)
     p.add_argument("--temperature", type=float, default=0.6)
     p.add_argument("--top_p", type=float, default=0.9)
@@ -161,16 +174,22 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
             f"unknown --llm {args.llm!r}; known: {', '.join(sorted(LLMS.keys()))}"
         )
     unported = {
-        "--orbax_dir": (args.orbax_dir, "M5, direct-int8 save and restore"),
-        "--spec_k": (args.spec_k, "M7"), "--model_name": (args.model_name, "the hf backend"),
+        "--orbax_dir": (args.orbax_dir, "M5 leftovers, direct-int8 save and restore"),
+        "--model_name": (args.model_name, "M4 leftovers, the hf backend"),
     }
     for flag, (value, item) in unported.items():
         if value:
             raise SystemExit(f"{flag} is not ported to PyTorch yet (ROADMAP {item})")
+    if bool(args.spec_k) != (args.spec_draft is not None):
+        raise SystemExit("--spec_k and --spec_draft must be set together")
+    if args.spec_k and args.serving == "cb":
+        raise SystemExit("--spec_k rides the batch path: speculative decoding is "
+                         "incompatible with --serving cb")
     kwargs = {}
     if args.llm == "torch-llama":
-        if not args.fabricated and not args.ckpt_dir:
-            raise SystemExit("--llm torch-llama requires --fabricated (or --ckpt_dir)")
+        if not args.fabricated and (not args.ckpt_dir or not args.tokenizer_path):
+            raise SystemExit("--llm torch-llama requires --ckpt_dir and --tokenizer_path "
+                             "(or --fabricated for a timing run)")
         kwargs.update(
             ckpt_dir=args.ckpt_dir,
             tokenizer_path=args.tokenizer_path,
@@ -182,6 +201,8 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
             kv_quant=args.kv_quant,
             serving=args.serving,
             cb_slots=args.cb_slots,
+            spec_k=args.spec_k,
+            spec_draft=args.spec_draft,
         )
     return kwargs
 
@@ -234,6 +255,16 @@ def run(args: argparse.Namespace, llm=None):
             f"prefix cache: rebuilds={llm.llama.prefix_rebuilds} "
             f"extends={llm.llama.prefix_extends}"
         )
+        spec = getattr(llm, "_spec", None)
+        if spec is not None and spec.drafts_proposed:
+            # the run's realized acceptance (random drafts sit near 0)
+            suffix = (" (auto-disabled below break-even mid-run)"
+                      if getattr(llm, "_spec_disabled", False) else "")
+            logger.info(
+                f"speculation: rounds={spec.rounds} "
+                f"accepted={spec.drafts_accepted}/{spec.drafts_proposed} "
+                f"acceptance={spec.drafts_accepted / spec.drafts_proposed:.3f}{suffix}"
+            )
     if result.metrics is not None:
         m = result.metrics
         print(

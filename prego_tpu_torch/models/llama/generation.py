@@ -86,9 +86,11 @@ class Llama:
         self.prefix_extends = 0  # observability: delta-prefill count
         self.decode_steps = 0  # single-token forwards run (all rows at once)
 
-    def _new_cache(self, batch: int) -> Cache:
+    def _new_cache(self, batch: int, spare: int = 0) -> Cache:
+        """A zero cache of this model's kind; ``spare`` positions past
+        max_seq_len for speculative decoding (``speculative.py``)."""
         return init_cache(self.config, batch, dtype=self.dtype, device=self.device,
-                          quantized=self.kv_quant)
+                          quantized=self.kv_quant, spare=spare)
 
     # -- the decode loop --
 

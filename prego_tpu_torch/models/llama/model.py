@@ -323,12 +323,14 @@ def fuse_projections(params: Params) -> Params:
 
 
 def init_cache(
-    config: LlamaConfig, batch: int, dtype=torch.bfloat16, device="cpu", quantized: bool = False
+    config: LlamaConfig, batch: int, dtype=torch.bfloat16, device="cpu", quantized: bool = False,
+    spare: int = 0,
 ) -> Cache:
-    """Per-layer head-major (B, KV, T, hd) K and V tensors; ``quantized``:
+    """Per-layer head-major (B, KV, T, hd) K and V tensors, T = max_seq_len
+    + ``spare`` (speculative decoding's spare tail); ``quantized``:
     {"q": (B, KV, T, hd) int8, "s": (B, KV, T) f32} leaves instead, half
     the cache bytes of bf16."""
-    shape = (batch, config.kv_heads, config.max_seq_len, config.head_dim)
+    shape = (batch, config.kv_heads, config.max_seq_len + spare, config.head_dim)
 
     def leaf():
         if quantized:

@@ -37,6 +37,35 @@ def sample_top_p(
     return torch.gather(probs_idx, -1, sampled[:, None])[:, 0]
 
 
+def processed_probs(
+    logits: torch.Tensor,  # (B, V) f32
+    temperature: float,
+    top_p: float,
+) -> torch.Tensor:
+    """The exact distribution ``sample_next_token`` draws from at
+    temperature > 0 (prego_tpu/ops/sampling.py:28): softmax at the
+    temperature, the exclusive-prefix nucleus cut of ``sample_top_p``,
+    renormalised and scattered back to vocabulary order. Speculative
+    decoding's rejection rule preserves the target's distribution only
+    when p and q are these vectors. (B, V) f32."""
+    probs = torch.softmax(logits / max(temperature, 1e-9), dim=-1)
+    probs_sort, probs_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    cumsum = torch.cumsum(probs_sort, dim=-1)
+    probs_sort = torch.where(cumsum - probs_sort > top_p, torch.zeros_like(probs_sort),
+                             probs_sort)
+    probs_sort = probs_sort / probs_sort.sum(dim=-1, keepdim=True)
+    return torch.zeros_like(probs).scatter_(-1, probs_idx, probs_sort)
+
+
+def categorical(probs: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One draw per row from (..., V) probabilities: Gumbel-max over their
+    log, as ``sample_top_p`` draws (the construction of
+    ``jax.random.categorical``). (...,) int64."""
+    u = torch.rand(probs.shape, generator=generator, device=probs.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=_TINY)))
+    return torch.argmax(torch.log(probs) + gumbel, dim=-1)
+
+
 def sample_next_token(
     logits: torch.Tensor,  # (B, V) f32
     temperature: float,

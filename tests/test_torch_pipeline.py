@@ -157,6 +157,49 @@ def test_port_quantized_anticipate_cli_never_loads_jax(aggregated, tmp_path):
     assert (tmp_path / "results").exists()
 
 
+def test_port_spec_and_checkpoint_anticipate_cli_never_load_jax(aggregated, tmp_path):
+    """In a fresh interpreter: the port's anticipate CLI with speculative
+    decoding (--spec_k 2 --spec_draft self-1, tiny weights), then with a
+    Meta checkpoint directory (--ckpt_dir, --tokenizer_path byte) written
+    from seeded random weights: results come out, the speculation line is
+    logged, and neither jax nor the JAX package is loaded."""
+    from prego_tpu_torch.models.llama import init_params, tiny_test_config
+    from tests.test_torch_convert import meta_state, write_meta_dir
+
+    agg, agg_path = aggregated
+    cfg = tiny_test_config(vocab_size=258)
+    ckpt = write_meta_dir(tmp_path / "llama-tiny",
+                          meta_state(init_params(cfg, torch.Generator().manual_seed(4),
+                                                 dtype=torch.float32)), 2, cfg)
+    common = (f"'--dataset', 'synthcustom', '--seqs', {str(agg_path)!r}, '--max_gen_len', '4',\n"
+              "'--max_seq_len', '256', '--device', 'cpu', '--temperature', '0'")
+    code = (
+        "import sys, json\n"
+        "from prego_tpu_torch.cli.anticipate import main\n"
+        "r1 = main(['--llm', 'torch-llama', '--fabricated', 'tiny', '--spec_k', '2',\n"
+        f"           '--spec_draft', 'self-1', '--results_root', {str(tmp_path / 'r1')!r},\n"
+        f"           {common}])\n"
+        f"r2 = main(['--llm', 'torch-llama', '--ckpt_dir', {str(ckpt)!r},\n"
+        "           '--tokenizer_path', 'byte', '--quantize', 'int8',\n"
+        f"           '--results_root', {str(tmp_path / 'r2')!r}, {common}])\n"
+        "jax_pkg = sorted(m for m in sys.modules if m == 'prego_tpu' or m.startswith('prego_tpu.'))\n"
+        "print(json.dumps({'jax_loaded': 'jax' in sys.modules, 'jax_package': jax_pkg,\n"
+        "                  'samples': [r1.metrics['samples'], r2.metrics['samples']]}))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("PREGO_PLATFORM", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["jax_loaded"] is False
+    assert report["jax_package"] == []
+    n_steps = sum(len(v["pred"]) for v in agg.values())
+    assert report["samples"] == [n_steps, n_steps]
+    assert "speculation: rounds=" in proc.stderr + proc.stdout
+    assert (tmp_path / "r1").exists() and (tmp_path / "r2").exists()
+
+
 def test_cb_slice_matches_jax(aggregated):
     """jax-llama against torch-llama on the same tiny weights, both with
     --serving cb (the continuous-batching slot loop): the same anticipated
