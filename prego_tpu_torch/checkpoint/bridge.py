@@ -7,6 +7,11 @@ pytrees hold once on the host) and torch tensors on a chosen device.
 
 Covered trees:
   * MiniROAD (``prego_tpu/models/miniroad.py:69-84``): embed, ln, cls, gru;
+    MiniROADA (``prego_tpu/models/miniroad_a.py:27-35``) adds
+    anticipation and, with ``actionness``, actionness;
+  * the Transformer recognizer (``prego_tpu/models/transformer.py:85-110``):
+    embed, cls_token, pos, head, ln_f and blocks of ln1, qkv (w only), proj,
+    ln2, mlp_in, mlp_out;
   * LLaMA (``prego_tpu/models/llama/model.py:41-78``) unfused
     (wq/wk/wv/wo, w1/w2/w3) and after ``fuse_projections``
     (wqkv/wo, w13/w2), bf16/f32 or quantized (``quantize_params``,
@@ -38,6 +43,10 @@ import torch
 from prego_tpu_torch.checkpoint.io import tree_leaves
 
 _MINIROAD_KEYS = {"embed", "ln", "cls", "gru"}
+_MINIROADA_KEYS = ({"anticipation"}, {"anticipation", "actionness"})  # beside MiniROAD's
+_TRANSFORMER_KEYS = {"embed", "cls_token", "pos", "head", "ln_f", "blocks"}
+_BLOCK_KEYS = {"ln1", "qkv", "proj", "ln2", "mlp_in", "mlp_out"}
+_LINEAR, _NORM = {"w", "b"}, {"scale", "bias"}
 _GRU_KEYS = {"w_ih", "b_ih", "w_hh", "b_hh"}
 _LLAMA_KEYS = {"tok_embeddings", "layers", "norm", "output"}
 _ATTN_KEYS = ({"wq", "wk", "wv", "wo"}, {"wqkv", "wo"})
@@ -86,12 +95,32 @@ def _check_keys(node: Dict[str, Any], allowed, where: str):
 
 
 def check_miniroad_tree(params: Dict[str, Any]) -> None:
-    _check_keys(params, _MINIROAD_KEYS, "miniroad")
-    _check_keys(params["embed"], {"w", "b"}, "miniroad.embed")
-    _check_keys(params["ln"], {"scale", "bias"}, "miniroad.ln")
-    _check_keys(params["cls"], {"w", "b"}, "miniroad.cls")
+    """A MiniROAD tree, or MiniROADA's (its anticipation and actionness heads)."""
+    _check_keys(params, (_MINIROAD_KEYS, *(_MINIROAD_KEYS | k for k in _MINIROADA_KEYS)),
+                "miniroad")
+    _check_keys(params["embed"], _LINEAR, "miniroad.embed")
+    _check_keys(params["ln"], _NORM, "miniroad.ln")
+    _check_keys(params["cls"], _LINEAR, "miniroad.cls")
+    for head in ("anticipation", "actionness"):
+        if head in params:
+            _check_keys(params[head], _LINEAR, f"miniroad.{head}")
     for i, layer in enumerate(params["gru"]):
         _check_keys(layer, _GRU_KEYS, f"miniroad.gru[{i}]")
+
+
+def check_transformer_tree(params: Dict[str, Any]) -> None:
+    _check_keys(params, _TRANSFORMER_KEYS, "transformer")
+    _check_keys(params["embed"], _LINEAR, "transformer.embed")
+    _check_keys(params["head"], _LINEAR, "transformer.head")
+    _check_keys(params["ln_f"], _NORM, "transformer.ln_f")
+    for i, blk in enumerate(params["blocks"]):
+        where = f"transformer.blocks[{i}]"
+        _check_keys(blk, _BLOCK_KEYS, where)
+        _check_keys(blk["qkv"], {"w"}, f"{where}.qkv")  # no qkv bias (Attention.py:16)
+        for name in ("proj", "mlp_in", "mlp_out"):
+            _check_keys(blk[name], _LINEAR, f"{where}.{name}")
+        for name in ("ln1", "ln2"):
+            _check_keys(blk[name], _NORM, f"{where}.{name}")
 
 
 def check_llama_tree(params: Dict[str, Any]) -> None:
@@ -112,9 +141,23 @@ def check_llama_tree(params: Dict[str, Any]) -> None:
 
 
 def miniroad_from_numpy(params, device="cpu", dtype: Optional[torch.dtype] = None):
-    """JAX MiniROAD pytree (numpy leaves) -> the port's tensor dict."""
+    """JAX MiniROAD or MiniROADA pytree (numpy leaves) -> the port's tensor dict."""
     check_miniroad_tree(params)
     return _map(params, lambda a: to_tensor(a, device, dtype))
+
+
+def transformer_from_numpy(params, device="cpu", dtype: Optional[torch.dtype] = None):
+    """JAX Transformer recognizer pytree (numpy leaves) -> the port's tensor dict."""
+    check_transformer_tree(params)
+    return _map(params, lambda a: to_tensor(a, device, dtype))
+
+
+def recognizer_from_numpy(params, device="cpu", dtype: Optional[torch.dtype] = None):
+    """Any recognizer's pytree, by its keys: the Transformer's (``blocks``)
+    or MiniROAD's / MiniROADA's."""
+    if "blocks" in params:
+        return transformer_from_numpy(params, device, dtype)
+    return miniroad_from_numpy(params, device, dtype)
 
 
 def _quant_leaf(leaf, fn):

@@ -3,6 +3,8 @@
   train:  python -m prego_tpu_torch.cli.train --config configs/miniroad_assembly101-O.yaml
   eval:   python -m prego_tpu_torch.cli.train --config ... --eval path/to/best.ckpt
   options: [--resume CKPT] [--device cuda|cpu] [--eval_output_dir DIR] [--<key> value]
+  e.g.:   --data_backend native | --model MiniROADA --task ANTICIPATION
+          --loss ANTICIPATION --anticipation_length L | --model Transformer
 
 Runs on the card unless ``--device cpu`` asks for the CPU; without a card
 and without that flag it raises. Behavior kept from the JAX CLI: YAML +
@@ -12,10 +14,17 @@ the best_{mAP}.ckpt rename at the end, the same log lines, and on --eval
 the per-frame prediction JSON in the reference's schema. Checkpoints are
 the JAX package's format both ways (checkpoint/io.py, checkpoint/bridge.py):
 ``prego_tpu.cli.train --resume`` takes the port's, and the port's
-``--resume`` takes the JAX package's.
+``--resume`` takes the JAX package's, for every registered model
+(MiniROAD, MiniROADA, Transformer).
 
-Not ported here: the ANTICIPATION task (ROADMAP M9) and ``data_backend:
-native`` (ROADMAP M8b); both raise NotImplementedError naming the item.
+Tasks dispatch as the reference's build_trainer / build_eval registries
+do: OAD trains on the last frame's label and evaluates with
+``Evaluator``; ANTICIPATION (with MiniROADA) trains on the next L frames'
+labels and evaluates with ``AntEvaluator``. ``data_backend: native``
+reads the splits through the C++ mmap store (built with g++ on first use;
+a failed build raises, nothing falls back to numpy), and on the card
+hands training batches over in pinned host memory. As in the JAX CLI,
+ANTICIPATION training on the native backend is refused.
 """
 
 from __future__ import annotations
@@ -32,10 +41,11 @@ import numpy as np
 import torch
 
 from prego_tpu_torch.checkpoint import load_checkpoint, load_params, save_checkpoint
+import prego_tpu_torch.models  # noqa: F401  (fills the MODELS registry)
 from prego_tpu_torch.checkpoint.bridge import (
     adam_from_optax,
     adam_to_optax,
-    miniroad_from_numpy,
+    recognizer_from_numpy,
     to_numpy_tree,
 )
 from prego_tpu_torch.checkpoint.io import tree_leaves
@@ -47,23 +57,43 @@ from prego_tpu_torch.core import (
     resolve_device,
     set_seed,
 )
-from prego_tpu_torch.core.registry import MODELS
-from prego_tpu_torch.data import WindowSampler, load_dataset_info, load_feature_store
+from prego_tpu_torch.core.registry import EVALUATORS, MODELS, TRAINERS
+from prego_tpu_torch.data import (
+    AnticipationWindowSampler,
+    NativeRecognitionData,
+    NativeWindowSampler,
+    WindowSampler,
+    load_dataset_info,
+    load_feature_store,
+)
 from prego_tpu_torch.train import (
-    Evaluator,
     build_optimizer,
+    make_ant_train_step,
     make_train_step,
-    train_one_epoch,
     warmup_cosine_schedule,
 )
 
+TASKS = ("OAD", "ANTICIPATION")
+DATA_BACKENDS = ("numpy", "native")
 
-def _check_task(cfg: RecognitionConfig, what: str) -> None:
-    if cfg.task != "OAD":
-        raise NotImplementedError(
-            f"task {cfg.task!r}: the port {what} the OAD task only "
-            "(ANTICIPATION and MiniROADA are ROADMAP M9)"
-        )
+
+def _check(cfg: RecognitionConfig) -> str:
+    """The task and the data backend are known; returns the backend."""
+    if cfg.task not in TASKS:
+        raise ValueError(f"task {cfg.task!r}: expected one of {TASKS}")
+    backend = cfg.get("data_backend", "numpy")
+    if backend not in DATA_BACKENDS:
+        raise ValueError(f"data_backend {backend!r}: expected one of {DATA_BACKENDS}")
+    return backend
+
+
+def _load_store(backend: str, vids, training: bool, common: dict):
+    """One split on the numpy backend (FeatureStore, in host RAM) or the
+    native one (NativeRecognitionData, mmap'd; raises if its library does
+    not build)."""
+    if backend == "native":
+        return NativeRecognitionData(vids=list(vids), training=training, **common)
+    return load_feature_store(vids=vids, training=training, **common)
 
 
 def _setup(cfg: RecognitionConfig, device: torch.device):
@@ -86,17 +116,21 @@ def _setup(cfg: RecognitionConfig, device: torch.device):
 
 def run_eval(cfg: RecognitionConfig, device) -> Tuple[float, Dict]:
     """The --eval path: load the test split and the checkpoint named by
-    ``cfg.eval``, score every video, export the JSON. Returns (mAP, result)."""
-    _check_task(cfg, "evaluates")
+    ``cfg.eval``, score every video, and for OAD export the JSON. Returns
+    (mAP, result); for ANTICIPATION the mAP is the mean anticipation mAP."""
+    backend = _check(cfg)
     device = resolve_device(device)
     info, _, logger, common = _setup(cfg, device)
-    test_store = load_feature_store(vids=info.test_session_set, training=False, **common)
+    test_store = _load_store(backend, info.test_session_set, False, common)
     model = MODELS.get(cfg.model)(cfg)
-    evaluator = Evaluator(cfg, info.class_index, logger=logger)
-    params = miniroad_from_numpy(load_params(cfg.eval), device=device, dtype=torch.float32)
-    export = osp.join(cfg.eval_output_dir, cfg.eval_output_name)
-    mAP, result = evaluator(model, params, test_store, export_json=export)
-    logger.info(f"per-frame predictions exported to {export}")
+    evaluator = EVALUATORS.get(cfg.task)(cfg, info.class_index, logger=logger)
+    params = recognizer_from_numpy(load_params(cfg.eval), device=device, dtype=torch.float32)
+    if cfg.task == "ANTICIPATION":
+        mAP, result = evaluator(model, params, test_store)
+    else:
+        export = osp.join(cfg.eval_output_dir, cfg.eval_output_name)
+        mAP, result = evaluator(model, params, test_store, export_json=export)
+        logger.info(f"per-frame predictions exported to {export}")
     logger.info(f"{cfg.task} result: {mAP * 100:.2f} m{cfg.metric}")
     return mAP, result
 
@@ -114,20 +148,24 @@ class TrainResult:
 def run_train(cfg: RecognitionConfig, device, resume: Optional[str] = None) -> TrainResult:
     """Train from ``cfg`` (or from the checkpoint ``resume``), evaluating
     after every epoch and keeping the best checkpoint."""
-    _check_task(cfg, "trains")
-    if cfg.get("data_backend", "numpy") == "native":
-        raise NotImplementedError(
-            "data_backend: native is not ported to PyTorch yet (ROADMAP M8b); "
-            "use the numpy data backend"
-        )
+    backend = _check(cfg)
+    ant = cfg.task == "ANTICIPATION"
+    if ant and backend == "native":  # as prego_tpu/cli/train.py:130-131
+        raise SystemExit("ANTICIPATION training uses the numpy data backend")
     device = resolve_device(device)
     info, result_path, logger, common = _setup(cfg, device)
-    test_store = load_feature_store(vids=info.test_session_set, training=False, **common)
+    test_store = _load_store(backend, info.test_session_set, False, common)
     model = MODELS.get(cfg.model)(cfg)
-    evaluator = Evaluator(cfg, info.class_index, logger=logger)
+    evaluator = EVALUATORS.get(cfg.task)(cfg, info.class_index, logger=logger)
 
-    train_store = load_feature_store(vids=info.train_session_set, training=True, **common)
-    sampler = WindowSampler(train_store, cfg.window_size, cfg.stride)
+    train_store = _load_store(backend, info.train_session_set, True, common)
+    if backend == "native":  # batches in pinned host memory for the card
+        sampler = NativeWindowSampler(train_store, cfg.window_size, cfg.stride, device=device)
+    elif ant:
+        sampler = AnticipationWindowSampler(train_store, cfg.window_size, cfg.stride,
+                                            cfg.anticipation_length)
+    else:
+        sampler = WindowSampler(train_store, cfg.window_size, cfg.stride)
     np_rng = np.random.default_rng(cfg.seed)
     sampler.resample(np_rng)
 
@@ -141,7 +179,7 @@ def run_train(cfg: RecognitionConfig, device, resume: Optional[str] = None) -> T
     host_params = (
         ckpt["params"] if ckpt is not None else to_numpy_tree(model.init(make_generator(cfg.seed)))
     )
-    params = miniroad_from_numpy(host_params, device=device, dtype=torch.float32)
+    params = recognizer_from_numpy(host_params, device=device, dtype=torch.float32)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     start_epoch = 1
@@ -159,10 +197,11 @@ def run_train(cfg: RecognitionConfig, device, resume: Optional[str] = None) -> T
             logger.info("no dropout generator state for this device in the checkpoint: "
                         f"the dropout stream restarts from seed {cfg.seed + 1}")
         logger.info(f"resumed from {resume} at epoch {start_epoch}")
-    train_step = make_train_step(
+    train_step = (make_ant_train_step if ant else make_train_step)(
         model, optimizer, flow_is_zero=train_store.flow_is_zero, bf16=cfg.amp,
         gru_backend=cfg.get("train_gru_backend", "scan"), schedule=schedule,
     )
+    epoch_fn = TRAINERS.get(cfg.task)
 
     n_params = sum(p.numel() for p in tree_leaves(params))
     logger.info(f"Dataset: {cfg.data_name},  Model: {cfg.model}")
@@ -189,7 +228,7 @@ def run_train(cfg: RecognitionConfig, device, resume: Optional[str] = None) -> T
     ckpt_path = osp.join(result_path, "ckpts", "best.ckpt")
     for epoch in range(start_epoch, cfg.num_epoch + 1):
         t0 = time.perf_counter()
-        epoch_loss = train_one_epoch(
+        epoch_loss = epoch_fn(
             sampler, model, train_step, params, generator, cfg.batch_size, epoch,
             np_rng=np_rng, logger=logger, writer=writer, stats=result.stats,
         )

@@ -21,7 +21,7 @@ final torch batch.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +30,11 @@ from prego_tpu_torch.data.features import FeatureStore
 
 @dataclass
 class Batch:
+    """One training batch. rgb, flow and target are numpy arrays from
+    ``WindowSampler``, float32 CPU tensors (pinned for the card) from the
+    native sampler, which also sets ``on_copied``: the loop calls it once
+    the tensors are copied, and the sampler may then reuse their memory."""
+
     rgb: np.ndarray  # (B, W, D_rgb) float32
     flow: np.ndarray  # (B, W, D_flow) float32
     target: np.ndarray  # (B, W, K) float32
@@ -37,6 +42,7 @@ class Batch:
     vids: List[str]
     starts: np.ndarray  # (B,) int64
     ends: np.ndarray  # (B,) int64
+    on_copied: Optional[Callable[[], None]] = None
 
 
 class WindowSampler:

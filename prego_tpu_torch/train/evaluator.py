@@ -11,7 +11,14 @@ each group streamed through the model in fixed time chunks (2048 frames)
 with the GRU state carried from chunk to chunk; h0 is zero per video and
 the recurrence is batch-independent, so per-frame outputs equal a
 batch-1 eval. Chunks are gathered from the host store just before their
-dispatch, so host memory holds one (V, chunk, D) slab at a time.
+dispatch, so host memory holds one (V, chunk, D) slab at a time. A model
+without ``init_hidden`` (the Transformer) is scored by windows instead:
+the group is packed into one padded batch and ``forward_full`` builds
+each frame's causal window. The store may be a numpy ``FeatureStore`` or
+the native ``NativeRecognitionData``.
+
+``AntEvaluator`` (the ANTICIPATION task, ANT_Evaluate) runs MiniROADA's
+``forward_full`` over each video's first T - L frames at batch 1.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from prego_tpu_torch.data.features import FeatureStore
+from prego_tpu_torch.data.windowing import pack_eval_batch
 from prego_tpu_torch.metrics.perframe import perframe_average_precision
 from prego_tpu_torch.core.registry import EVALUATORS
 from prego_tpu_torch.models.miniroad import MiniROAD
@@ -59,6 +67,12 @@ def make_chunk_fn(model: MiniROAD, flow_is_zero: bool, backend: str = "scan"):
 
 def _device_of(params) -> torch.device:
     return params["embed"]["w"].device
+
+
+def _gru_backend(cfg) -> str:
+    """The config's eval GRU backend: 'pallas' (the JAX config's name)
+    streams through K1; a CUDA tensor takes K1 whatever it says."""
+    return "kernel" if cfg.get("gru_backend", "scan") == "pallas" else "scan"
 
 
 def streaming_scores(
@@ -120,6 +134,74 @@ def streaming_scores_lazy(
     ]
 
 
+def _windowed_scores(model, params, store, vids: List[str], device) -> List[np.ndarray]:
+    """A windowed model's causal scores per video: the group packed into
+    one padded batch on ``device`` (no flow tensor for a zero flow stream)."""
+    rgb, flow, _, lengths, _ = pack_eval_batch(store, vids)
+    dense = model.forward_full(
+        params, torch.from_numpy(rgb).to(device),
+        None if store.flow_is_zero else torch.from_numpy(flow).to(device),
+        flow_is_zero=store.flow_is_zero,
+    ).cpu().numpy()
+    return [dense[i, : int(lengths[i])] for i in range(len(vids))]
+
+
+@EVALUATORS.register("ANTICIPATION")
+class AntEvaluator:
+    """ANT_Evaluate parity (trainer/eval.py:87-161): the per-frame mAP of
+    the current step, and one mAP per anticipation offset over each
+    video's first T - L frames; returns the mean anticipation mAP."""
+
+    def __init__(self, cfg, class_names: List[str], logger=None):
+        self.cfg = cfg
+        self.class_names = class_names
+        self.metric = cfg["metric"]
+        self.anticipation_length = cfg["anticipation_length"]
+        self.logger = logger
+
+    @torch.no_grad()
+    def __call__(self, model, params, store) -> Tuple[float, Dict]:
+        L = self.anticipation_length
+        device = _device_of(params)
+        backend = _gru_backend(self.cfg)
+        pred_scores, gt_targets, ant_scores, ant_targets = [], [], [], []
+        for vid in store.vids:
+            end = store.length(vid) - L
+            rgb = torch.from_numpy(np.asarray(store.rgb[vid][:end])[None]).to(device)
+            flow = (None if store.flow_is_zero
+                    else torch.from_numpy(np.asarray(store.flow[vid][:end])[None]).to(device))
+            scores, ant = model.forward_full(params, rgb, flow,
+                                             flow_is_zero=store.flow_is_zero, backend=backend)
+            pred_scores.append(scores[0].cpu().numpy())
+            ant_scores.append(ant[0].cpu().numpy())  # (end, L, K)
+            tgt = np.asarray(store.target[vid])
+            gt_targets.append(tgt[:end])
+            ant_targets.append(np.stack([tgt[s : s + L] for s in range(end)], axis=0))
+        pred_scores = np.concatenate(pred_scores)
+        gt_targets = np.concatenate(gt_targets)
+        ant_scores = np.concatenate(ant_scores)
+        ant_targets = np.concatenate(ant_targets)
+
+        result = perframe_average_precision(
+            pred_scores, gt_targets, self.class_names, None, self.metric
+        )
+        if self.logger is not None:
+            self.logger.info(f'OAD mAP: {result["mean_AP"] * 100:.2f}')
+        ant_maps = []
+        for step in range(L):
+            r = perframe_average_precision(
+                ant_scores[:, step, :], ant_targets[:, step, :], self.class_names, None,
+                self.metric,
+            )
+            result[f"anticipation_{step + 1}"] = r
+            ant_maps.append(r["mean_AP"])
+            if self.logger is not None:
+                self.logger.info(f"Anticipation at step {step + 1}: {r['mean_AP'] * 100:.2f}")
+        mean_ant = float(np.mean(ant_maps))
+        result["mean_anticipation_AP"] = mean_ant
+        return mean_ant, result
+
+
 @EVALUATORS.register("OAD")
 class Evaluator:
     def __init__(self, cfg, class_names: List[str], logger=None):
@@ -135,13 +217,15 @@ class Evaluator:
             self.postprocessing = None  # the PREGO datasets (eval.py:20-22)
 
     def __call__(
-        self, model: MiniROAD, params, store: FeatureStore,
-        export_json: Optional[str] = None, chunk_size: int = 2048, video_batch: int = 64,
+        self, model, params, store, export_json: Optional[str] = None,
+        chunk_size: int = 2048, video_batch: int = 64,
     ) -> Tuple[float, Dict]:
-        """Evaluate in groups of ``video_batch`` videos; within a group,
-        time chunks are gathered from the store lazily. ``result["fps"]``
+        """Evaluate ``model`` (any registered recognizer) on ``store`` (a
+        FeatureStore or NativeRecognitionData) in groups of
+        ``video_batch`` videos; within a group a recurrent model's time
+        chunks are gathered from the store lazily. ``result["fps"]``
         counts frames over the wall time of the scoring loop."""
-        backend = "kernel" if self.cfg.get("gru_backend", "scan") == "pallas" else "scan"
+        backend = _gru_backend(self.cfg)
         all_vids = list(store.vids)
         device = _device_of(params)
         if device.type == "cuda":
@@ -150,9 +234,12 @@ class Evaluator:
         per_video_scores: Dict[str, np.ndarray] = {}
         for g0 in range(0, len(all_vids), video_batch):
             group = all_vids[g0 : g0 + video_batch]
-            group_scores = streaming_scores_lazy(
-                model, params, store, group, chunk_size=chunk_size, backend=backend,
-            )
+            if hasattr(model, "init_hidden"):  # recurrent: the state carried across chunks
+                group_scores = streaming_scores_lazy(
+                    model, params, store, group, chunk_size=chunk_size, backend=backend,
+                )
+            else:  # windowed (the Transformer): forward_full builds each frame's window
+                group_scores = _windowed_scores(model, params, store, group, device)
             per_video_scores.update(zip(group, group_scores))
         elapsed = time.perf_counter() - t_start  # scores are on the host: synced
 
@@ -161,7 +248,7 @@ class Evaluator:
         lengths = np.array([store.length(v) for v in all_vids], np.int64)
         for vid in all_vids:
             s = per_video_scores[vid]
-            g = store.target[vid]
+            g = np.asarray(store.target[vid])
             pred_scores.append(s)
             gt_targets.append(g)
             output[vid] = {

@@ -7,7 +7,7 @@ log-softmax logits, mean-reduced over the batch.
 
 The model returns last-frame logits (B, K); padding rows of a partial
 batch are masked out of the mean by ``valid``. The ANTICIPATION criterion
-waits for the ANTICIPATION task (ROADMAP M9).
+(OadAntLoss) is ``anticipation_mlce``.
 """
 
 from __future__ import annotations
@@ -34,3 +34,19 @@ def last_frame_mlce(
     if valid is None:
         return per_example.mean()
     return torch.sum(per_example * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+@CRITERIONS.register("ANTICIPATION")
+def anticipation_mlce(
+    ant_logits: torch.Tensor, ant_target: torch.Tensor, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """OadAntLoss parity (criterions/loss.py:40-79): the same L2-normalised
+    target cross-entropy over the last frame's anticipation logits
+    ant_logits (B, L, K) against ant_target (B, L, K), SUM-reduced (the
+    reference builds OadAntLoss with reduction='sum'); padding rows are
+    masked out by ``valid`` (B,)."""
+    logp = torch.log_softmax(ant_logits, dim=-1)
+    per = torch.sum(-l2_normalize(ant_target) * logp, dim=-1)  # (B, L)
+    if valid is not None:
+        per = per * valid[:, None]
+    return torch.sum(per)

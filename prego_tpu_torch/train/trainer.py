@@ -11,6 +11,12 @@ The learning rate follows ``schedule(count)`` with count the number of
 updates made before this one, as optax counts it. A partial batch is
 padded by the sampler and masked out of the loss by ``valid``.
 
+A batch from the native sampler comes in pinned host tensors: the loop
+copies them with ``non_blocking`` on a side stream and marks the batch
+copied, so that the sampler's ring can reuse the buffers once the copies
+have run. A numpy batch is copied as before (pageable, so the copy waits
+for the host and for the stream).
+
 Nothing here falls back: a kernel that fails to build or to launch
 raises out of the step.
 """
@@ -25,9 +31,8 @@ import torch
 
 from prego_tpu_torch.checkpoint.io import tree_leaves
 from prego_tpu_torch.core.registry import TRAINERS
-from prego_tpu_torch.data.windowing import WindowSampler
-from prego_tpu_torch.models.miniroad import MiniROAD
-from prego_tpu_torch.train.loss import last_frame_mlce
+from prego_tpu_torch.data.windowing import AnticipationWindowSampler
+from prego_tpu_torch.train.loss import anticipation_mlce, last_frame_mlce
 
 
 def build_optimizer(cfg, params) -> torch.optim.Optimizer:
@@ -47,16 +52,8 @@ def update_count(optimizer: torch.optim.Optimizer) -> int:
     return int(state["step"]) if state else 0
 
 
-def make_train_step(
-    model: MiniROAD, optimizer: torch.optim.Optimizer, flow_is_zero: bool,
-    bf16: bool = False, gru_backend: str = "scan",
-    schedule: Optional[Callable[[int], float]] = None,
-) -> Callable[..., torch.Tensor]:
-    """The train step: (params, rgb, flow, target_last, valid, generator)
-    -> loss. Forward, masked loss, backward, and one optimizer update with
-    the scheduled lr; params are updated in place."""
-
-    def step(params, rgb, flow, target_last, valid, generator) -> torch.Tensor:
+def _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule, loss_of):
+    def step(params, rgb, flow, target, valid, generator) -> torch.Tensor:
         if bf16:
             rgb = rgb.to(torch.bfloat16)
             flow = None if flow is None else flow.to(torch.bfloat16)
@@ -65,10 +62,10 @@ def make_train_step(
             for group in optimizer.param_groups:
                 group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
-        logits = model.forward_train(
+        out = model.forward_train(
             params, rgb, flow, generator, flow_is_zero=flow_is_zero, backend=gru_backend
         )
-        loss = last_frame_mlce(logits.float(), target_last, valid)
+        loss = loss_of(out, target, valid)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -76,10 +73,104 @@ def make_train_step(
     return step
 
 
-@TRAINERS.register("OAD")
-def train_one_epoch(
-    sampler: WindowSampler,
-    model: MiniROAD,
+def make_train_step(
+    model, optimizer: torch.optim.Optimizer, flow_is_zero: bool,
+    bf16: bool = False, gru_backend: str = "scan",
+    schedule: Optional[Callable[[int], float]] = None,
+) -> Callable[..., torch.Tensor]:
+    """The train step: (params, rgb, flow, target_last, valid, generator)
+    -> loss. Forward, masked loss, backward, and one optimizer update with
+    the scheduled lr; params are updated in place."""
+    return _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule,
+                      lambda logits, target, valid: last_frame_mlce(logits.float(), target, valid))
+
+
+def make_ant_train_step(
+    model, optimizer: torch.optim.Optimizer, flow_is_zero: bool, bf16: bool = False,
+    gru_backend: str = "scan", schedule: Optional[Callable[[int], float]] = None,
+) -> Callable[..., torch.Tensor]:
+    """The ANTICIPATION-task train step (trainer/train.py:31-54 +
+    criterions/loss.py:40-79): (params, rgb, flow, ant_target, valid,
+    generator) -> loss, the sum-reduced anticipation loss on the last
+    window frame's predicted future steps; otherwise as ``make_train_step``
+    (the GRU on a CUDA tensor is K1 + K6 here too)."""
+    return _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule,
+                      lambda out, target, valid: anticipation_mlce(out[1].float(), target, valid))
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A batch array on ``device``: a numpy array through a pageable copy,
+    a pinned tensor (the native sampler's ring) with ``non_blocking``."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return x.to(device, non_blocking=x.is_pinned())
+
+
+def _batch_on_device(batch, device, flow_is_zero: bool, targets: Callable):
+    """(rgb, flow, target, valid) of ``batch`` on ``device``, then the
+    batch marked copied."""
+    out = (to_device(batch.rgb, device),
+           None if flow_is_zero else to_device(batch.flow, device),
+           targets(batch, device), to_device(batch.valid, device))
+    if batch.on_copied is not None:
+        batch.on_copied()  # the copies are enqueued: the sampler reuses the buffers after them
+    return out
+
+
+def _run_epoch(
+    sampler, train_step, params, generator, batch_size: int, epoch: int,
+    targets: Callable, np_rng, writer, log_every: int, logger, stats: Optional[dict], label: str,
+) -> float:
+    """The epoch loop both tasks share: ``targets(batch, device)`` gives
+    the step's target tensor. A loss is read from the card only where it
+    is logged, and the epoch's at the end, so that the host can enqueue a
+    step while the card runs the one before. Pinned batches (the native
+    sampler's) are copied on a side stream that the step's stream waits
+    for: the copy of batch i+1 runs beside step i."""
+    device = tree_leaves(params)[0].device
+    flow_is_zero = sampler.store.flow_is_zero
+    copy_stream = None
+    losses = []
+    n_windows = 0
+    t0 = time.perf_counter()
+    for it, batch in enumerate(sampler.iter_batches(batch_size, shuffle=True, rng=np_rng)):
+        if device.type == "cuda" and isinstance(batch.rgb, torch.Tensor) and batch.rgb.is_pinned():
+            copy_stream = copy_stream or torch.cuda.Stream(device)
+            compute = torch.cuda.current_stream(device)
+            with torch.cuda.stream(copy_stream):
+                tensors = _batch_on_device(batch, device, flow_is_zero, targets)
+            compute.wait_stream(copy_stream)
+            for x in tensors:
+                if x is not None:
+                    x.record_stream(compute)  # allocated on the copy stream, read by the step
+        else:
+            tensors = _batch_on_device(batch, device, flow_is_zero, targets)
+        loss = train_step(params, *tensors, generator)
+        losses.append(loss)
+        n_windows += int(batch.valid.sum())  # a host array or a pinned tensor: no device read
+        if writer is not None:
+            writer.add_scalar("Train Loss", float(loss), it + epoch * sampler.num_batches(batch_size))
+        if logger is not None and it % log_every == 0:
+            logger.info(f"epoch {epoch} it {it} {label} {float(loss):.4f}")
+    epoch_loss = sum(torch.stack(losses).cpu().tolist()) if losses else 0.0
+    if stats is not None:
+        stats["steps"] = stats.get("steps", 0) + len(losses)
+        stats["windows"] = stats.get("windows", 0) + n_windows
+        stats["seconds"] = stats.get("seconds", 0.0) + time.perf_counter() - t0
+    return epoch_loss / max(len(losses), 1)
+
+
+def _last_frame_target(batch, device) -> torch.Tensor:
+    if isinstance(batch.target, np.ndarray):
+        return to_device(batch.target[:, -1, :], device)
+    # a ring tensor: copied whole (contiguous, so non_blocking), sliced on the device
+    return to_device(batch.target, device)[:, -1, :].contiguous()
+
+
+@TRAINERS.register("ANTICIPATION")
+def ant_train_one_epoch(
+    sampler: AnticipationWindowSampler,
+    model,
     train_step: Callable[..., torch.Tensor],
     params,
     generator: Optional[torch.Generator],
@@ -91,32 +182,35 @@ def train_one_epoch(
     logger=None,
     stats: Optional[dict] = None,
 ) -> float:
-    """One epoch over the sampler's windows, shuffled by ``np_rng``; params
-    and the optimizer are updated in place. Returns the mean loss. With a
+    """One ANTICIPATION epoch (batches carry ``ant_target`` (B, L, K));
+    otherwise as ``train_one_epoch``."""
+    return _run_epoch(
+        sampler, train_step, params, generator, batch_size, epoch,
+        lambda batch, device: to_device(batch.ant_target, device),
+        np_rng, writer, log_every, logger, stats, "ant loss",
+    )
+
+
+@TRAINERS.register("OAD")
+def train_one_epoch(
+    sampler,
+    model,
+    train_step: Callable[..., torch.Tensor],
+    params,
+    generator: Optional[torch.Generator],
+    batch_size: int,
+    epoch: int,
+    np_rng: Optional[np.random.Generator] = None,
+    writer=None,
+    log_every: int = 50,
+    logger=None,
+    stats: Optional[dict] = None,
+) -> float:
+    """One epoch over the sampler's windows (``WindowSampler`` or
+    ``NativeWindowSampler``), shuffled by ``np_rng``; params and the
+    optimizer are updated in place. Returns the mean loss. With a
     ``stats`` dict, adds the steps, windows and seconds of the loop to it."""
-    device = tree_leaves(params)[0].device
-    epoch_loss = 0.0
-    n_batches = n_windows = 0
-    t0 = time.perf_counter()
-    for it, batch in enumerate(sampler.iter_batches(batch_size, shuffle=True, rng=np_rng)):
-        rgb = torch.from_numpy(batch.rgb).to(device)
-        flow = None if sampler.store.flow_is_zero else torch.from_numpy(batch.flow).to(device)
-        loss = train_step(
-            params, rgb, flow,
-            torch.from_numpy(np.ascontiguousarray(batch.target[:, -1, :])).to(device),
-            torch.from_numpy(batch.valid).to(device),
-            generator,
-        )
-        loss = float(loss)
-        epoch_loss += loss
-        n_batches += 1
-        n_windows += int(batch.valid.sum())
-        if writer is not None:
-            writer.add_scalar("Train Loss", loss, it + epoch * sampler.num_batches(batch_size))
-        if logger is not None and it % log_every == 0:
-            logger.info(f"epoch {epoch} it {it} loss {loss:.4f}")
-    if stats is not None:
-        stats["steps"] = stats.get("steps", 0) + n_batches
-        stats["windows"] = stats.get("windows", 0) + n_windows
-        stats["seconds"] = stats.get("seconds", 0.0) + time.perf_counter() - t0
-    return epoch_loss / max(n_batches, 1)
+    return _run_epoch(
+        sampler, train_step, params, generator, batch_size, epoch, _last_frame_target,
+        np_rng, writer, log_every, logger, stats, "loss",
+    )

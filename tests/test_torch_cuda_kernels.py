@@ -1204,3 +1204,110 @@ def test_int8_fusion_kernels_refuse_what_they_cannot_take(cuda_device):
     args = _attn_q8_inputs(cuda_device, 1, 2, 1, 64, 24)
     with pytest.raises(ValueError):
         da8.decode_attention_q8(*args, 3, int8_mxu=True)  # hd not a multiple of 16
+
+
+# ---- the recognition trainer's other settings: the native data engine's
+# pinned handover, and K1 + K6 under MiniROADA ----
+
+
+def _native_split(root, n_videos=6, dim=2048, classes=7, seed=0):
+    """Videos in the feature store's layout (rgb, zeroed flow, targets)."""
+    rng = np.random.default_rng(seed)
+    for sub in ("rgb_anet_resnet50", "target_perframe"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    vids = []
+    for i in range(n_videos):
+        T = int(rng.integers(80, 200))
+        np.save(root / "rgb_anet_resnet50" / f"v{i}.npy",
+                rng.normal(0, 1, (T, dim)).astype(np.float32))
+        np.save(root / "target_perframe" / f"v{i}.npy",
+                np.eye(classes, dtype=np.float32)[rng.integers(0, classes, T)])
+        vids.append(f"v{i}")
+    return vids
+
+
+def test_pinned_ring_batches_equal_numpy_under_a_slowed_step(cuda_device, tmp_path):
+    """Every copy waits behind a 2 ms sleep on the stream and the host never
+    waits for the card, so it runs many batches ahead: the ring must wait on
+    each slot's event before the pool writes the slot again, or a queued
+    copy reads the next batch. The batches on the card equal the numpy
+    sampler's bit for bit."""
+    from prego_tpu_torch.data import (
+        NativeRecognitionData, NativeWindowSampler, WindowSampler, load_feature_store,
+    )
+
+    vids = _native_split(tmp_path)
+    kw = dict(rgb_type="rgb_anet_resnet50", flow_type="flow_anet_resnet50",
+              annotation_type="target_perframe", num_classes=7, training=True, window_size=32)
+    native = NativeRecognitionData(str(tmp_path), vids, **kw)
+    store = load_feature_store(str(tmp_path), vids, **kw)
+    sampler = NativeWindowSampler(native, 32, 4, device=cuda_device)
+    ref = WindowSampler(store, 32, 4)
+    for s in (sampler, ref):
+        s.resample(np.random.default_rng(1))
+    on_card, ptrs = [], set()
+    cycles = int(2e-3 * torch.cuda.get_device_properties(cuda_device).clock_rate * 1e3)
+    for epoch in range(2):
+        for batch in sampler.iter_batches(8, rng=np.random.default_rng(2 + epoch)):
+            assert batch.rgb.is_pinned() and batch.target.is_pinned()
+            ptrs.add(batch.rgb.data_ptr())
+            torch.cuda._sleep(cycles)  # the step before the copy, slowed
+            on_card.append((batch.rgb.to(cuda_device, non_blocking=True),
+                            batch.target.to(cuda_device, non_blocking=True)))
+            batch.on_copied()
+    torch.cuda.synchronize()
+    want = [b for e in range(2) for b in ref.iter_batches(8, rng=np.random.default_rng(2 + e))]
+    assert len(want) == len(on_card) > 40
+    for (rgb, tgt), w in zip(on_card, want):
+        np.testing.assert_array_equal(rgb.cpu().numpy(), w.rgb)
+        np.testing.assert_array_equal(tgt.cpu().numpy(), w.target)
+    assert len(ptrs) == 3 and sampler.ring.replaced == 0  # three pinned slots, reused
+
+
+def test_k1_and_k6_under_miniroada(cuda_device):
+    """MiniROADA's train step (K1 forward, K6 backward) and its eval forward
+    (K1 at B 1) on the card against the same bf16 dtype walk on the CPU
+    (the kernels' plain versions): loss within 1e-4 of itself, gradients
+    within 2e-2 in norm, as the OAD train step in chip_smoke.py."""
+    from prego_tpu_torch.checkpoint.io import tree_leaves
+    from prego_tpu_torch.core import RecognitionConfig, make_generator
+    from prego_tpu_torch.models import MiniROADA
+    from prego_tpu_torch.train import build_optimizer, make_ant_train_step
+
+    cfg = RecognitionConfig.from_dict({
+        "model": "MiniROADA", "rgb_type": "rgb_anet_resnet50", "embedding_dim": 128,
+        "hidden_dim": 64, "num_classes": 9, "anticipation_length": 4, "dropout": 0.0,
+        "optimizer": "AdamW"})
+    model = MiniROADA(cfg)
+    init = model.init(make_generator(0))
+    rng = np.random.default_rng(5)
+    rgb = torch.from_numpy(rng.normal(0, 1, (8, 32, 2048)).astype(np.float32))
+    ant = torch.from_numpy(np.eye(9, dtype=np.float32)[rng.integers(0, 9, (8, 4))])
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        params = {k: ([{kk: vv.to(device, copy=True) for kk, vv in g.items()} for g in v]
+                      if isinstance(v, list) else {kk: vv.to(device, copy=True)
+                                                   for kk, vv in v.items()})
+                  for k, v in init.items()}
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        step = make_ant_train_step(model, build_optimizer(cfg, params), flow_is_zero=True,
+                                   gru_backend="pallas_train")
+        k1, k6 = gru_cuda.KERNEL.launches, gru_cuda_vjp.KERNEL.launches
+        loss = float(step(params, rgb.to(device), None, ant.to(device), torch.ones(8, device=device),
+                          None))
+        launched = (gru_cuda.KERNEL.launches - k1, gru_cuda_vjp.KERNEL.launches - k6)
+        with torch.no_grad():
+            scores = model.forward_full(params, rgb[:1].to(device), None, flow_is_zero=True,
+                                        backend="kernel")
+        out[device.type] = (loss, [p.grad.cpu() for p in leaves], launched,
+                            [s.cpu() for s in scores])
+    loss, grads, launched, scores = out["cuda"]
+    ref_loss, ref_grads, ref_launched, ref_scores = out["cpu"]
+    assert launched == (1, 1) and ref_launched == (0, 0)
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).norm()) <= 2e-2 * float(r.norm())
+    for s, r in zip(scores, ref_scores):  # softmax scores after K1 at B 1 over 32 frames
+        assert float((s - r).abs().max()) <= 2.0 ** -6

@@ -274,10 +274,12 @@ def test_port_cb_cli_and_online_detector_never_load_jax(setup, aggregated, tmp_p
 
 
 def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):
-    """The port's train CLI (one epoch) and then its pipeline CLI on the
-    trained checkpoint (eval -> aggregate -> torch-llama with fabricated
-    tiny weights -> metrics) in a fresh interpreter: afterwards neither jax
-    nor any module of the JAX package (prego_tpu, prego_tpu.*) is loaded."""
+    """The port's train CLI (one epoch each: on the native data backend,
+    and MiniROADA on the ANTICIPATION task) and then its pipeline CLI on
+    the native run's checkpoint (eval -> aggregate -> torch-llama with
+    fabricated tiny weights -> metrics) in a fresh interpreter: afterwards
+    neither jax nor any module of the JAX package (prego_tpu, prego_tpu.*)
+    is loaded."""
     _, cfg_path, _ = setup
     workdir = tmp_path / "wd"
     code = (
@@ -285,7 +287,11 @@ def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):
         "from prego_tpu_torch.cli.train import main as train\n"
         "from prego_tpu_torch.cli.pipeline import main\n"
         f"train(['--config', {str(cfg_path)!r}, '--output_path', {str(tmp_path / 'out')!r},\n"
-        "       '--device', 'cpu'])\n"
+        "       '--device', 'cpu', '--data_backend', 'native'])\n"
+        f"ant = train(['--config', {str(cfg_path)!r}, '--output_path', {str(tmp_path / 'ant')!r},\n"
+        "             '--device', 'cpu', '--model', 'MiniROADA', '--task', 'ANTICIPATION',\n"
+        "             '--loss', 'ANTICIPATION', '--anticipation_length', '3'])\n"
+        "assert 0.0 < ant <= 1.0\n"
         f"ckpt, = glob.glob({str(tmp_path / 'out')!r} + '/*/ckpts/best_*.ckpt')\n"
         f"r = main(['--config', {str(cfg_path)!r}, '--ckpt', ckpt,\n"
         f"          '--workdir', {str(workdir)!r}, '--llm', 'torch-llama',\n"
@@ -309,8 +315,19 @@ def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):
     assert (workdir / "results").exists()
 
 
-def test_training_is_refused_with_the_roadmap_item(setup):
-    """Recognition training is ported; the ANTICIPATION task's is not (M9)."""
-    _, cfg_path, _ = setup
-    with pytest.raises(NotImplementedError, match="M9"):
-        train_main(["--config", str(cfg_path), "--device", "cpu", "--task", "ANTICIPATION"])
+def test_training_is_refused_with_the_roadmap_item(setup, tmp_path):
+    """Recognition training is ported in every setting the JAX CLI runs, and
+    refuses only what that CLI refuses (ANTICIPATION on the native data
+    backend); what the pipeline still cannot run names its ROADMAP item
+    (the hf backend's --model_name, M4)."""
+    from prego_tpu_torch.cli.pipeline import main as pipeline_main
+
+    _, cfg_path, ckpt = setup
+    with pytest.raises(SystemExit, match="numpy data backend"):
+        train_main(["--config", str(cfg_path), "--device", "cpu", "--model", "MiniROADA",
+                    "--task", "ANTICIPATION", "--loss", "ANTICIPATION",
+                    "--anticipation_length", "3", "--data_backend", "native"])
+    with pytest.raises(SystemExit, match="ROADMAP M4"):
+        pipeline_main(["--config", str(cfg_path), "--ckpt", str(ckpt), "--workdir",
+                       str(tmp_path / "wd"), "--llm", "torch-llama", "--model_name", "hf/x",
+                       "--dataset", "synthcustom", "--device", "cpu"])

@@ -278,8 +278,13 @@ def test_train_cli_runs_on_the_card_unless_asked(synth_cfg, monkeypatch):
 
 
 def test_train_cli_refuses_what_is_not_ported(synth_cfg):
+    """What the port still refuses, as the JAX package does: ANTICIPATION
+    training on the native data backend (prego_tpu/cli/train.py:130-131)."""
     _, cfg_path, _ = synth_cfg
-    with pytest.raises(NotImplementedError, match="M9"):
-        train_main(["--config", str(cfg_path), "--device", "cpu", "--task", "ANTICIPATION"])
-    with pytest.raises(NotImplementedError, match="M8b"):
-        train_main(["--config", str(cfg_path), "--device", "cpu", "--data_backend", "native"])
+    ant = ["--model", "MiniROADA", "--task", "ANTICIPATION", "--loss", "ANTICIPATION",
+           "--anticipation_length", "3", "--data_backend", "native"]
+    with pytest.raises(SystemExit, match="numpy data backend") as port:
+        train_main(["--config", str(cfg_path), "--device", "cpu", *ant])
+    with pytest.raises(SystemExit, match="numpy data backend") as jax_side:
+        jax_train_main(["--config", str(cfg_path), *ant])
+    assert str(port.value) == str(jax_side.value)
