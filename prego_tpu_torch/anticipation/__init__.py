@@ -6,7 +6,13 @@ from prego_tpu_torch.anticipation.driver import (
     run_anticipation,
     save_results,
 )
-from prego_tpu_torch.anticipation.llm import FakeLLM, TorchLlamaLLM, build_llm
+from prego_tpu_torch.anticipation.llm import (
+    FakeLLM,
+    HFPipelineLLM,
+    OllamaLLM,
+    TorchLlamaLLM,
+    build_llm,
+)
 from prego_tpu_torch.anticipation.prompts import (
     DEFAULT_CONTEXT_STYLES,
     PromptBuilder,
@@ -23,6 +29,8 @@ __all__ = [
     "run_anticipation",
     "save_results",
     "FakeLLM",
+    "HFPipelineLLM",
+    "OllamaLLM",
     "TorchLlamaLLM",
     "build_llm",
     "DEFAULT_CONTEXT_STYLES",

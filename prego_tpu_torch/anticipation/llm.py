@@ -5,6 +5,9 @@ temperature, top_p)`` with ``{"generation": str}`` dicts, the prompt echo
 stripped (llama/generation.py:233-282). Here:
 
   * FakeLLM: the deterministic next-symbol oracle for hermetic runs;
+  * HFPipelineLLM (``hf``): a transformers text-generation pipeline on a
+    device of its own (transformers is imported on first build);
+  * OllamaLLM (``ollama``): the chat API of an Ollama server over HTTP;
   * TorchLlamaLLM (``torch-llama``): the port's LLaMA decoder on one
     device, in the single-card fused layout (wqkv, w13), bf16 on the card;
     ``quantize="int8"`` serves int8 weights (K4), ``"int8x8"`` int8 weights
@@ -21,7 +24,12 @@ TorchLlamaLLM takes its weights from a Meta checkpoint directory
 random weights at a reference shape (``fabricated=``), or as parameters
 handed over through ``checkpoint/bridge.py`` (``params=`` with
 ``config=``). A converted tree is fused (wqkv, w13) and, under
-``quantize``, quantized on the device it serves from.
+``quantize``, quantized on the device it serves from. ``orbax_dir`` names
+a cache of converted weights for a Meta directory, written and read by
+``checkpoint/params_io.py`` (the JAX adapter's Orbax cache,
+prego_tpu/anticipation/llm.py:307-353, 404-423): with ``quantize="int8"``
+it holds the fused int8 serving tree, and later builds restore the int8
+tensors straight onto the device, with no conversion and no bf16 stage.
 """
 
 from __future__ import annotations
@@ -75,6 +83,96 @@ class FakeLLM:
         return [{"generation": f" {self.oracle(self._history_from_prompt(p))}"} for p in prompts]
 
 
+def import_transformers():
+    """transformers for a PyTorch model. Unless the environment says
+    otherwise, it is told to load neither TensorFlow nor Flax: where those
+    are installed, its pipelines import them, and through them jax."""
+    os.environ.setdefault("USE_TF", "0")
+    os.environ.setdefault("USE_FLAX", "0")
+    import transformers
+
+    return transformers
+
+
+@LLMS.register("hf")
+class HFPipelineLLM:
+    """transformers text-generation pipeline adapter (llm_hf.py:24-58).
+
+    The pipeline echoes the prompt unless asked not to; every backend
+    honours the same no-echo contract. Greedy where ``temperature`` is 0.
+    The pipeline runs on ``device``: the card by default, which raises
+    where there is none (``core/device.py``). An injected ``pipe`` is used
+    as given."""
+
+    def __init__(self, model_name: str, device: str = "cuda", pipe=None):
+        if pipe is not None:
+            self.pipe = pipe
+            return
+        device = resolve_device(device)  # before the heavy import
+        self.pipe = import_transformers().pipeline(
+            "text-generation", model=model_name, tokenizer=model_name, device=device)
+
+    def text_completion(
+        self,
+        prompts: List[str],
+        max_gen_len: Optional[int] = None,
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+    ) -> List[Dict[str, str]]:
+        do_sample = temperature > 0
+        kwargs = {"max_new_tokens": max_gen_len, "do_sample": do_sample,
+                  "return_full_text": False}
+        if do_sample:
+            kwargs.update(temperature=temperature, top_p=top_p)
+        out = []
+        for res in self.pipe(prompts, **kwargs):
+            if isinstance(res, list):
+                res = res[0]
+            out.append({"generation": res["generated_text"]})
+        return out
+
+
+@LLMS.register("ollama")
+class OllamaLLM:
+    """Ollama chat adapter (llm_ollama.py:76-145): one request a prompt to
+    ``{host}/api/chat`` over urllib (no ollama package), with the
+    reference's system message that asks for a single number."""
+
+    SYSTEM = (
+        "Always provide only the final output, consisting in one and only "
+        "one number. Never output anything different from a single number."
+    )
+
+    def __init__(self, model_name: str, host: str = "http://127.0.0.1:11434"):
+        self.model_name = model_name
+        self.host = host.rstrip("/")
+
+    def _chat(self, prompt: str, temperature: float, top_p: float, max_gen_len):
+        import urllib.request
+
+        body = {
+            "model": self.model_name,
+            "stream": False,
+            "messages": [{"role": "system", "content": self.SYSTEM},
+                         {"role": "user", "content": prompt}],
+            "options": {"temperature": temperature, "top_p": top_p,
+                        **({"num_predict": max_gen_len} if max_gen_len else {})},
+        }
+        req = urllib.request.Request(f"{self.host}/api/chat", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req) as resp:
+            return json.loads(resp.read())["message"]["content"]
+
+    def text_completion(
+        self,
+        prompts: List[str],
+        max_gen_len: Optional[int] = None,
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+    ) -> List[Dict[str, str]]:
+        return [{"generation": self._chat(p, temperature, top_p, max_gen_len)} for p in prompts]
+
+
 # reference serving shapes (llama/model.py:20-31 and the 7B/13B checkpoints
 # of Llama.build); "1b" and "tiny" are small stand-ins
 FABRICATED_SHAPES = {
@@ -100,23 +198,56 @@ def fabricated_config(shape: str, max_seq_len: int, max_batch_size: int, n_layer
 
 
 def load_checkpoint_dir(ckpt_dir: str, tokenizer, max_seq_len: int, max_batch_size: int,
-                        dtype, device):
-    """(unfused params, LlamaConfig) of a Meta directory (``params.json``,
-    the vocabulary from the tokenizer) or an HF export (``config.json``),
-    built on ``device`` (the JAX adapter's checkpoint branch,
-    prego_tpu/anticipation/llm.py:269-340, without Orbax or tp)."""
-    from prego_tpu_torch.checkpoint.convert import convert_hf_checkpoint, convert_meta_checkpoint
+                        dtype, device, orbax_dir: Optional[str] = None, quantize=False):
+    """(params, LlamaConfig) of a Meta directory (``params.json``, the
+    vocabulary from the tokenizer) or an HF export (``config.json``), built
+    on ``device`` (the JAX adapter's checkpoint branch,
+    prego_tpu/anticipation/llm.py:269-423, without tp).
+
+    A Meta directory's tree comes back unfused in ``dtype`` without
+    ``quantize``, and fused and quantized with it. ``orbax_dir`` (Meta
+    directories only, as in the JAX adapter) caches the conversion:
+      * present, ``quantize="int8"``, an int8 cache: the int8 tree restored
+        directly (no conversion, no quantization);
+      * present, ``quantize`` on, a bf16 cache: restored, then quantized;
+      * present, ``quantize`` off: restored (an int8 cache raises);
+      * absent, ``quantize`` off: converted, then saved;
+      * absent, ``quantize="int8"``: converted, quantized, then the int8
+        serving tree saved. Nothing is saved under ``"int8x8"``.
+    """
+    from prego_tpu_torch.checkpoint import convert, params_io
+    from prego_tpu_torch.models.llama import model
     from prego_tpu_torch.models.llama.config import LlamaConfig
 
     if not osp.isdir(ckpt_dir):
         raise FileNotFoundError(
             f"ckpt_dir {ckpt_dir!r} does not exist (expected a Meta checkpoint dir with "
             "params.json or an HF export with config.json)")
+    act_quant = quantize == "int8x8"
     if osp.exists(osp.join(ckpt_dir, "params.json")):
         config = LlamaConfig.from_params_json(ckpt_dir, max_seq_len=max_seq_len,
                                               max_batch_size=max_batch_size,
                                               vocab_size=tokenizer.n_words)
-        return convert_meta_checkpoint(ckpt_dir, config, dtype, device), config
+        cached = bool(orbax_dir) and osp.isdir(orbax_dir)
+        if cached:
+            stored = params_io.read_manifest(orbax_dir)
+            if quantize and not act_quant and stored["quantized"]:
+                # the serving tree itself: int8 straight onto the device
+                return params_io.load_llama_params(orbax_dir, config, device, dtype,
+                                                   quantized=True), config
+            params = params_io.load_llama_params(orbax_dir, config, device, dtype)
+        else:
+            params = convert.convert_meta_checkpoint(ckpt_dir, config, dtype, device)
+            if orbax_dir and not quantize:
+                params_io.save_llama_params(orbax_dir, params, config)
+        if quantize:
+            params = model.quantize_params(model.fuse_projections(params),
+                                           activations=act_quant)
+            if orbax_dir and not cached and not act_quant:
+                # later builds restore the int8 tree; the int8 x int8 marker
+                # is structural, so that layout is not cached
+                params_io.save_llama_params(orbax_dir, params, config)
+        return params, config
     with open(osp.join(ckpt_dir, "config.json")) as f:
         hf = json.load(f)
     config = LlamaConfig(
@@ -126,7 +257,7 @@ def load_checkpoint_dir(ckpt_dir: str, tokenizer, max_seq_len: int, max_batch_si
         rope_theta=hf.get("rope_theta", 10000.0), max_seq_len=max_seq_len,
         max_batch_size=max_batch_size,
     )
-    return convert_hf_checkpoint(ckpt_dir, config, dtype, device), config
+    return convert.convert_hf_checkpoint(ckpt_dir, config, dtype, device), config
 
 
 @LLMS.register("torch-llama")
@@ -140,6 +271,9 @@ class TorchLlamaLLM:
         max_seq_len: int = 512,
         max_batch_size: int = 8,
         fabricated: Optional[str] = None,  # "7b"/"13b"/"1b"/"tiny": random weights
+        orbax_dir: Optional[str] = None,  # cache of a Meta directory's converted
+        # weights (checkpoint/params_io.py); with quantize="int8" the int8
+        # serving tree, restored directly by later builds
         params=None,  # the port's parameter dict (checkpoint/bridge.py)
         config=None,  # its LlamaConfig, required with params
         device: str = "cuda",  # raises where there is no card; "cpu" on request
@@ -207,7 +341,8 @@ class TorchLlamaLLM:
             # holds a 7B bf16 tree beside its int8 copy, and does the
             # transposes and the quantization far faster than the host
             params, config = load_checkpoint_dir(ckpt_dir, tokenizer, max_seq_len,
-                                                 max_batch_size, dtype, device)
+                                                 max_batch_size, dtype, device,
+                                                 orbax_dir=orbax_dir, quantize=quantize)
         else:
             tokenizer = load_tokenizer(tokenizer_path) if tokenizer_path else ByteTokenizer()
         if params is not None:

@@ -29,7 +29,7 @@ import json
 import mmap
 import struct
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -167,29 +167,40 @@ def convert_hf_checkpoint(
     return _tree(get, config, names)
 
 
-def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """The tensors of a ``.safetensors`` file, on the CPU: an 8-byte
-    little-endian header length, that many bytes of JSON (name -> dtype,
-    shape, [begin, end) data offsets; an optional ``__metadata__``), then
-    the little-endian data the offsets index."""
-    out: Dict[str, torch.Tensor] = {}
+def safetensors_header(path: str) -> Tuple[int, Dict[str, Any]]:
+    """(the offset where a ``.safetensors`` file's data starts, its header
+    without ``__metadata__``): an 8-byte little-endian header length, that
+    many bytes of JSON (name -> dtype, shape, [begin, end) data offsets),
+    then the little-endian data the offsets index."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY) as buf:
-            for name, info in header.items():
-                if name == "__metadata__":
-                    continue
-                if info["dtype"] not in _ST_DTYPES:
-                    raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']!r}")
-                dtype = _ST_DTYPES[info["dtype"]]
-                begin, end = info["data_offsets"]
-                shape: List[int] = info["shape"]
-                count = (end - begin) // torch.empty((), dtype=dtype).element_size()
-                # each view of the file is copied out before the map closes
-                out[name] = (torch.frombuffer(buf, dtype=dtype, count=count, offset=8 + n + begin)
-                             .reshape(shape).clone() if count else
-                             torch.empty(shape, dtype=dtype))
+    header.pop("__metadata__", None)
+    for name, info in header.items():
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']!r}")
+    return 8 + n, header
+
+
+def load_safetensors(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """The tensors of a ``.safetensors`` file on ``device``: the file is
+    mapped, and each tensor copied from the map straight into a tensor of
+    its stored dtype there."""
+    start, header = safetensors_header(path)
+    out: Dict[str, torch.Tensor] = {}
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY) as buf:
+        for name, info in header.items():
+            dtype = _ST_DTYPES[info["dtype"]]
+            begin, end = info["data_offsets"]
+            shape: List[int] = info["shape"]
+            count = (end - begin) // dtype.itemsize
+            if not count:
+                out[name] = torch.empty(shape, dtype=dtype, device=device)
+                continue
+            view = torch.frombuffer(buf, dtype=dtype, count=count, offset=start + begin)
+            # copied out before the map closes
+            out[name] = view.reshape(shape).to(device, copy=True)
+            del view
     return out
 
 

@@ -1,14 +1,17 @@
 """Step-anticipation + mistake-detection entry point (port of
 prego_tpu/cli/anticipate.py).
 
-Same flags as the JAX CLI; the LLM backends here are --llm {fake,
-torch-llama}. --quantize [int8|int8x8] and --kv_quant select the quantized
-serving modes of torch-llama, --serving cb [--cb_slots N] its
+Same flags as the JAX CLI; the LLM backends here are --llm {fake, hf,
+ollama, torch-llama}. --quantize [int8|int8x8] and --kv_quant select the
+quantized serving modes of torch-llama, --serving cb [--cb_slots N] its
 continuous-batching slot loop, --spec_k K --spec_draft D speculative
 decoding, and --ckpt_dir with --tokenizer_path a Meta or HF checkpoint in
-place of --fabricated weights. The JAX package's options that are not
-ported yet (--orbax_dir, --model_name) are accepted and refused with the
-ROADMAP item that ports them. Data assets
+place of --fabricated weights; --orbax_dir caches a Meta checkpoint's
+converted weights (the int8 serving tree under --quantize int8, restored
+directly by later runs). --llm hf (a transformers pipeline on --device)
+and --llm ollama (an Ollama server at --ollama_host) need --model_name;
+the JAX CLI builds its ollama backend without the model name, a fault of
+that CLI, which this one does not copy. Data assets
 (context prompts, recognizer prediction JSONs, idx2action/idx2emoji symbol
 maps) are resolved under --data_root, which can point directly at a
 reference-layout step_anticipation/data directory.
@@ -26,6 +29,10 @@ Examples:
       --spec_k 4 --spec_draft self-8 --dataset synthcustom --seqs aggregated.json
   python -m prego_tpu_torch.cli.anticipate --llm torch-llama \
       --ckpt_dir llama-2-7b --tokenizer_path tokenizer.model --quantize int8 \
+      --orbax_dir llama-2-7b-int8 --dataset synthcustom --seqs aggregated.json
+  python -m prego_tpu_torch.cli.anticipate --llm hf --model_name <local HF dir> \
+      --dataset synthcustom --seqs aggregated.json --cleaning_mode hf
+  python -m prego_tpu_torch.cli.anticipate --llm ollama --model_name llama3.2:1b \
       --dataset synthcustom --seqs aggregated.json
 """
 
@@ -92,10 +99,13 @@ def load_assets(args):
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--llm", type=str, default="fake", help="fake | torch-llama")
+    p.add_argument("--llm", type=str, default="fake", help="fake | hf | ollama | torch-llama")
     p.add_argument("--ckpt_dir", type=str, default=None)
     p.add_argument("--tokenizer_path", type=str, default=None)
-    p.add_argument("--model_name", type=str, default=None, help="HF backend: not ported")
+    p.add_argument("--model_name", type=str, default=None,
+                   help="HF model id or local dir for --llm hf; model for --llm ollama")
+    p.add_argument("--ollama_host", type=str, default="http://127.0.0.1:11434",
+                   help="the Ollama server of --llm ollama")
     p.add_argument("--data_root", type=str, default="step_anticipation/data")
     p.add_argument("--seqs", type=str, default=None, help="path to a predictions/aggregated JSON")
     p.add_argument("--max_seq_len", type=int, default=512)
@@ -105,9 +115,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="random weights at a reference serving shape — "
                         "TIMING runs of the full driver at scale (metrics "
                         "are meaningless); no --ckpt_dir needed")
-    # the JAX CLI's serving options, refused below until they are ported
     p.add_argument("--orbax_dir", type=str, default=None,
-                   help="not ported: direct-int8 save and restore (ROADMAP M5)")
+                   help="cache of a Meta checkpoint's converted weights; with --quantize "
+                        "int8 it holds the fused int8 serving tree and later runs restore "
+                        "it directly (no conversion, no bf16 stage)")
     p.add_argument("--quantize", nargs="?", const="int8", default=False,
                    choices=["int8", "int8x8"],
                    help="int8 serving for --llm torch-llama: bare flag or 'int8' = "
@@ -158,7 +169,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--checkpoint_every", type=int, default=10)
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch-llama device: cuda | cpu (default cuda; raises where there is no card)")
+                   help="torch-llama and hf device: cuda | cpu (default cuda; raises where "
+                        "there is no card)")
     return p.parse_args(argv)
 
 
@@ -173,20 +185,21 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
         raise SystemExit(
             f"unknown --llm {args.llm!r}; known: {', '.join(sorted(LLMS.keys()))}"
         )
-    unported = {
-        "--orbax_dir": (args.orbax_dir, "M5 leftovers, direct-int8 save and restore"),
-        "--model_name": (args.model_name, "M4 leftovers, the hf backend"),
-    }
-    for flag, (value, item) in unported.items():
-        if value:
-            raise SystemExit(f"{flag} is not ported to PyTorch yet (ROADMAP {item})")
     if bool(args.spec_k) != (args.spec_draft is not None):
         raise SystemExit("--spec_k and --spec_draft must be set together")
     if args.spec_k and args.serving == "cb":
         raise SystemExit("--spec_k rides the batch path: speculative decoding is "
                          "incompatible with --serving cb")
     kwargs = {}
-    if args.llm == "torch-llama":
+    if args.llm in ("hf", "ollama"):
+        if not args.model_name:
+            raise SystemExit(f"--llm {args.llm} requires --model_name")
+        kwargs["model_name"] = args.model_name
+        if args.llm == "hf":
+            kwargs["device"] = args.device
+        else:
+            kwargs["host"] = args.ollama_host
+    elif args.llm == "torch-llama":
         if not args.fabricated and (not args.ckpt_dir or not args.tokenizer_path):
             raise SystemExit("--llm torch-llama requires --ckpt_dir and --tokenizer_path "
                              "(or --fabricated for a timing run)")
@@ -196,6 +209,7 @@ def llm_kwargs(args: argparse.Namespace) -> dict:
             max_seq_len=args.max_seq_len,
             max_batch_size=args.max_batch_size,
             fabricated=args.fabricated,
+            orbax_dir=args.orbax_dir,
             device=args.device,
             quantize=args.quantize,
             kv_quant=args.kv_quant,

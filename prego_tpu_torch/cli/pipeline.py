@@ -10,7 +10,8 @@ does not exist, SURVEY.md §7 quirk table). Here:
       --ckpt best.ckpt --llm torch-llama --fabricated 7b --dataset synthcustom
 
 This is the port of prego_tpu/cli/pipeline.py, with the same flags plus
---fabricated (passed on to anticipate) and --device.
+--fabricated and --orbax_dir (passed on to anticipate) and --device. --llm
+hf and --llm ollama take --model_name, as anticipate does.
 
 Use --skip_recognition with --seqs to start from existing per-frame or
 aggregated predictions.
@@ -61,6 +62,8 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--fabricated", type=str, default=None,
                    choices=["7b", "13b", "1b", "tiny"],
                    help="torch-llama with random weights at a reference shape")
+    p.add_argument("--orbax_dir", type=str, default=None,
+                   help="torch-llama: cache of the --ckpt_dir checkpoint's converted weights")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda | cpu (default cuda; raises where there is no card)")
     args = p.parse_args(argv)
@@ -126,6 +129,8 @@ def main(argv: Optional[List[str]] = None):
         ant_args += ["--tokenizer_path", args.tokenizer_path]
     if args.fabricated:
         ant_args += ["--fabricated", args.fabricated]
+    if args.orbax_dir:
+        ant_args += ["--orbax_dir", args.orbax_dir]
     ant_args += ["--device", args.device]
     result = anticipate_main(ant_args)
     logger.info("[pipeline] done")

@@ -2,7 +2,8 @@
 prego_tpu/models/llama/generation.py).
 
 Parity surface: Llama.generate / Llama.text_completion
-(llama/generation.py:127-282):
+(llama/generation.py:127-282) and Llama.chat_completion (the LLaMA-2
+[INST]/<<SYS>> format, generation.py:284-395):
   * left-aligned prompts padded with pad_id into a (B, total_len) buffer;
   * positions still inside a longer prompt keep their prompt token
     (input_text_mask override, generation.py:204-207);
@@ -41,6 +42,13 @@ from prego_tpu_torch.models.llama.model import (
     precompute_rope,
 )
 from prego_tpu_torch.ops.sampling import sample_next_token
+
+
+# the LLaMA-2 chat format (llama/generation.py:43-48)
+B_INST, E_INST = "[INST]", "[/INST]"
+B_SYS, E_SYS = "<<SYS>>\n", "\n<</SYS>>\n\n"
+SPECIAL_TAGS = [B_INST, E_INST, "<<SYS>>", "<</SYS>>"]
+UNSAFE_ERROR = "Error: special tags are not allowed as part of the prompt."
 
 
 def _round_up(x: int, m: int) -> int:
@@ -349,3 +357,57 @@ class Llama:
                 for t, lp in zip(generation_tokens, generation_logprobs)
             ]
         return [{"generation": self.tokenizer.decode(t)} for t in generation_tokens]
+
+    def chat_dialog_tokens(self, dialog: List[Dict[str, str]]) -> List[int]:
+        """A dialog's prompt in the LLaMA-2 chat format (generation.py:
+        284-395): the system message folded into the first user turn
+        inside ``<<SYS>>``, each user/assistant exchange ``[INST] .. [/INST]
+        ..`` with bos and eos, the last user turn left open. Raises
+        ValueError where the roles do not alternate (the reference asserts)."""
+        if dialog[0]["role"] == "system":
+            dialog = [{"role": dialog[1]["role"],
+                       "content": B_SYS + dialog[0]["content"] + E_SYS + dialog[1]["content"]}
+                      ] + dialog[2:]
+        if not (all(m["role"] == "user" for m in dialog[::2])
+                and all(m["role"] == "assistant" for m in dialog[1::2])):
+            raise ValueError("roles must alternate user/assistant (optionally system first)")
+        toks: List[int] = []
+        for prompt, answer in zip(dialog[::2], dialog[1::2]):
+            toks += self.tokenizer.encode(
+                f"{B_INST} {prompt['content'].strip()} {E_INST} {answer['content'].strip()} ",
+                bos=True, eos=True)
+        if dialog[-1]["role"] != "user":
+            raise ValueError("last message must be from user")
+        toks += self.tokenizer.encode(f"{B_INST} {dialog[-1]['content'].strip()} {E_INST}",
+                                      bos=True, eos=False)
+        return toks
+
+    def chat_completion(
+        self,
+        dialogs: List[List[Dict[str, str]]],
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+        max_gen_len: Optional[int] = None,
+        logprobs: bool = False,
+    ) -> List[Dict]:
+        """LLaMA-2 chat completion over ``generate``: each dialog's prompt
+        from ``chat_dialog_tokens``; a dialog whose content injects any of
+        ``SPECIAL_TAGS`` gets ``UNSAFE_ERROR`` as its content
+        (generation.py:47-48, 324-327, 379-393); logprobs as in
+        ``text_completion``."""
+        if max_gen_len is None:
+            max_gen_len = self.config.max_seq_len - 1
+        unsafe = [any(tag in msg["content"] for tag in SPECIAL_TAGS for msg in d) for d in dialogs]
+        generation_tokens, generation_logprobs = self.generate(
+            [self.chat_dialog_tokens(d) for d in dialogs], max_gen_len=max_gen_len,
+            temperature=temperature, top_p=top_p, logprobs=logprobs,
+        )
+        out = []
+        for i, (t, bad) in enumerate(zip(generation_tokens, unsafe)):
+            item = {"generation": {"role": "assistant",
+                                   "content": UNSAFE_ERROR if bad else self.tokenizer.decode(t)}}
+            if logprobs:
+                item["tokens"] = [self.tokenizer.decode([x]) for x in t]
+                item["logprobs"] = generation_logprobs[i]
+            out.append(item)
+        return out

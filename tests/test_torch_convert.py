@@ -269,15 +269,15 @@ def test_llm_checkpoint_errors(tmp_path):
 
 
 def _cli_kwargs(*flags):
-    return anticipate.llm_kwargs(anticipate.parse_args(["--llm", "torch-llama", *flags]))
+    argv = flags if "--llm" in flags else ("--llm", "torch-llama", *flags)
+    return anticipate.llm_kwargs(anticipate.parse_args(list(argv)))
 
 
 @pytest.mark.parametrize("flags, message", [
-    (["--fabricated", "tiny", "--orbax_dir", "x"],
-     "--orbax_dir is not ported to PyTorch yet (ROADMAP M5 leftovers, direct-int8 save and "
-     "restore)"),
-    (["--fabricated", "tiny", "--model_name", "x"],
-     "--model_name is not ported to PyTorch yet (ROADMAP M4 leftovers, the hf backend)"),
+    # --orbax_dir and --model_name are ported: the backends that need a
+    # model name refuse to start without one, as the JAX CLI's hf does
+    (["--llm", "hf", "--orbax_dir", "x"], "--llm hf requires --model_name"),
+    (["--llm", "ollama", "--fabricated", "tiny"], "--llm ollama requires --model_name"),
     (["--ckpt_dir", "x"],
      "--llm torch-llama requires --ckpt_dir and --tokenizer_path (or --fabricated for a "
      "timing run)"),
@@ -286,6 +286,23 @@ def test_cli_refusals(flags, message):
     with pytest.raises(SystemExit) as exc:
         _cli_kwargs(*flags)
     assert str(exc.value) == message
+    if flags[:2] == ["--llm", "hf"]:  # the JAX CLI's own message
+        from prego_tpu.cli.anticipate import main as jax_main
+
+        with pytest.raises(SystemExit) as jax_exc:
+            jax_main(flags)
+        assert str(jax_exc.value) == message
+
+
+def test_cli_passes_the_checkpoint_flags():
+    kw = _cli_kwargs("--ckpt_dir", "d", "--tokenizer_path", "byte", "--quantize",
+                     "--orbax_dir", "cache")
+    assert (kw["ckpt_dir"], kw["orbax_dir"], kw["quantize"]) == ("d", "cache", "int8")
+    assert _cli_kwargs("--llm", "hf", "--model_name", "org/m", "--device", "cpu") == {
+        "model_name": "org/m", "device": "cpu"}
+    assert _cli_kwargs("--llm", "ollama", "--model_name", "m") == {
+        "model_name": "m", "host": "http://127.0.0.1:11434"}
+    assert _cli_kwargs("--llm", "fake", "--model_name", "m") == {}
 
 
 def test_cli_passes_the_checkpoint_flags():

@@ -161,10 +161,17 @@ def test_port_spec_and_checkpoint_anticipate_cli_never_load_jax(aggregated, tmp_
     """In a fresh interpreter: the port's anticipate CLI with speculative
     decoding (--spec_k 2 --spec_draft self-1, tiny weights), then with a
     Meta checkpoint directory (--ckpt_dir, --tokenizer_path byte) written
-    from seeded random weights: results come out, the speculation line is
-    logged, and neither jax nor the JAX package is loaded."""
+    from seeded random weights, twice more with --quantize int8 --orbax_dir
+    (the first run writes the int8 cache, the second restores it and
+    anticipates the same sets), and with --llm ollama against a stub server
+    on localhost: results come out, the speculation line is logged, and
+    neither jax, orbax nor the JAX package is loaded."""
+    import threading
+    from http.server import HTTPServer
+
     from prego_tpu_torch.models.llama import init_params, tiny_test_config
     from tests.test_torch_convert import meta_state, write_meta_dir
+    from tests.test_torch_llm_backends import _StubOllama
 
     agg, agg_path = aggregated
     cfg = tiny_test_config(vocab_size=258)
@@ -182,22 +189,44 @@ def test_port_spec_and_checkpoint_anticipate_cli_never_load_jax(aggregated, tmp_
         f"r2 = main(['--llm', 'torch-llama', '--ckpt_dir', {str(ckpt)!r},\n"
         "           '--tokenizer_path', 'byte', '--quantize', 'int8',\n"
         f"           '--results_root', {str(tmp_path / 'r2')!r}, {common}])\n"
+        "cached = []\n"
+        "for i in range(2):\n"
+        f"    cached.append(main(['--llm', 'torch-llama', '--ckpt_dir', {str(ckpt)!r},\n"
+        "        '--tokenizer_path', 'byte', '--quantize', 'int8',\n"
+        f"        '--orbax_dir', {str(tmp_path / 'cache')!r},\n"
+        f"        '--results_root', {str(tmp_path / 'r3')!r} + str(i), {common}]))\n"
+        "r5 = main(['--llm', 'ollama', '--model_name', 'm', '--ollama_host', HOST,\n"
+        f"           '--results_root', {str(tmp_path / 'r5')!r}, {common}])\n"
         "jax_pkg = sorted(m for m in sys.modules if m == 'prego_tpu' or m.startswith('prego_tpu.'))\n"
         "print(json.dumps({'jax_loaded': 'jax' in sys.modules, 'jax_package': jax_pkg,\n"
-        "                  'samples': [r1.metrics['samples'], r2.metrics['samples']]}))\n"
+        "                  'orbax_loaded': any(m.startswith('orbax') for m in sys.modules),\n"
+        "                  'cached_sets_equal': cached[0].preds == cached[1].preds == r2.preds,\n"
+        "                  'samples': [r.metrics['samples'] for r in (r1, r2, *cached, r5)]}))\n"
     )
+    _StubOllama.bodies = []
+    server = HTTPServer(("127.0.0.1", 0), _StubOllama)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    code = f"HOST = 'http://127.0.0.1:{server.server_port}'\n" + code
     env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     env.pop("PREGO_PLATFORM", None)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
-                          capture_output=True, text=True, timeout=600)
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        server.shutdown()
+        server.server_close()
     assert proc.returncode == 0, proc.stderr[-3000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["jax_loaded"] is False
     assert report["jax_package"] == []
+    assert report["orbax_loaded"] is False
     n_steps = sum(len(v["pred"]) for v in agg.values())
-    assert report["samples"] == [n_steps, n_steps]
+    assert report["samples"] == [n_steps] * 5
+    assert report["cached_sets_equal"] is True
+    assert {b["model"] for b in _StubOllama.bodies} == {"m"} and _StubOllama.bodies
     assert "speculation: rounds=" in proc.stderr + proc.stdout
     assert (tmp_path / "r1").exists() and (tmp_path / "r2").exists()
+    assert (tmp_path / "cache" / "manifest.json").exists()
 
 
 def test_cb_slice_matches_jax(aggregated):
@@ -318,8 +347,9 @@ def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):
 def test_training_is_refused_with_the_roadmap_item(setup, tmp_path):
     """Recognition training is ported in every setting the JAX CLI runs, and
     refuses only what that CLI refuses (ANTICIPATION on the native data
-    backend); what the pipeline still cannot run names its ROADMAP item
-    (the hf backend's --model_name, M4)."""
+    backend); the pipeline runs every backend the JAX one does and refuses
+    what it refuses (--llm hf without --model_name, after recognition, with
+    the JAX CLI's message)."""
     from prego_tpu_torch.cli.pipeline import main as pipeline_main
 
     _, cfg_path, ckpt = setup
@@ -327,7 +357,8 @@ def test_training_is_refused_with_the_roadmap_item(setup, tmp_path):
         train_main(["--config", str(cfg_path), "--device", "cpu", "--model", "MiniROADA",
                     "--task", "ANTICIPATION", "--loss", "ANTICIPATION",
                     "--anticipation_length", "3", "--data_backend", "native"])
-    with pytest.raises(SystemExit, match="ROADMAP M4"):
+    with pytest.raises(SystemExit, match="^--llm hf requires --model_name$"):
         pipeline_main(["--config", str(cfg_path), "--ckpt", str(ckpt), "--workdir",
-                       str(tmp_path / "wd"), "--llm", "torch-llama", "--model_name", "hf/x",
-                       "--dataset", "synthcustom", "--device", "cpu"])
+                       str(tmp_path / "wd"), "--llm", "hf", "--dataset", "synthcustom",
+                       "--device", "cpu"])
+    assert (tmp_path / "wd" / "aggregated.json").exists()
