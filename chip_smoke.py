@@ -41,7 +41,8 @@
    checkpoint with the JSON export -> TI-PREGO aggregation -> anticipation
    with torch-llama at LLaMA-2-7B shape (bf16, random weights from a seed,
    byte tokenizer) -> one-class verdicts and metrics; then anticipation
-   twice more over the same aggregated sequences, at 7B with
+   twice more over the first REPEAT_VIDEOS of the aggregated sequences
+   (each mode repeats the same per-call work), at 7B with
    --quantize int8 --kv_quant (K4, K3) and with --quantize int8x8 (K5,
    K2), int8 weights drawn directly from a seed; a fourth time at 7B
    with --quantize int8 --kv_quant and both int8 fusion gates on (K9, K3,
@@ -60,9 +61,9 @@
    and online detection, each phase's kernel counts from 0.
    (g) Speculative decoding at 7B full depth, k 4, 32 new tokens, greedy,
    at B 1 and 8 on the anticipation loop's first prompts, in bf16 and in int8 + int8
-   KV with the int8 stack: plain ``generate``, a self-8 draft, a replay of
-   plain greedy's tokens and a replay of the speculative path's own
-   tokens (acceptance >= 0.95), every row equal to plain greedy up to a
+   KV with the int8 stack: plain ``generate`` and a self-8 draft, and at B 8
+   a replay of plain greedy's tokens and a replay of the speculative path's
+   own tokens (acceptance >= 0.95), every row equal to plain greedy up to a
    near-tie; wall per generated token, rounds, accepted / proposed and the
    host's one read a round; the verify's attention cost; 8 anticipation calls
    through torch-llama (spec_k 4, self-8) against the batch pass; a
@@ -88,17 +89,33 @@
    K8u do not. (j4) tests/test_quant_scale.py's bars at its 134M shape
    through K4 and K5, beside the plain versions' figures. Each of (j1)-(j4)
    counts kernels from 0 ("cache_chat_launches" in the kernels line).
+   (k) Parallelism and profiling (prego_tpu_torch/parallel, core/profiling.py),
+   after phase 4: (k4) ``trace`` around four 7B bf16 decode steps, each in
+   ``annotate("decode_step")``, the trace file holding the annotation and
+   K2's and K7a's kernels, a ``ThroughputMeter`` that synchronizes the
+   card; then ranks as processes on this one card (``parallel.run_ranks``):
+   (k1) the 7B bf16 tree drawn layer by layer, each rank keeping its
+   blocks, greedy tokens of the loop's first 8 prompts over tp 1 (NCCL) and
+   tp 2 (gloo: NCCL refuses two ranks on one card), equal up to a
+   near-tie, K2 on each rank and none of K7a/K7/K7q/K8/K8u/K9, the step's
+   collectives alone at B 8; torch-llama int8 over (h)'s checkpoint split
+   over tp 2 (K4 on each rank) against the one-card int8 model; (k2) the
+   dp 2 train step at the recipe's widths (8 and 5 valid windows) against
+   the one-rank step (K1 and K6 on each rank); (k3) the sp 2 prefill at 7B
+   width x 2 layers (B 2, S 512, the cache replicated) against the one-rank
+   prefill. Each part counts kernels from 0 ("parallel_launches").
 4. Times train steps (host clock, and the device busy share of a few under
    torch.profiler), 7B decode steps at batch 1 and 8 in the three modes,
    the 7B int8 + int8 KV step with the int8 fusion gates off and on in
    alternating rounds, and 1B decode steps at batch 1 and 8 in four fusion
    settings (the three above and PREGO_FUSED_ATTN_WO=0, the unfused K2
-   sequence); at batch 1 with the device busy share too.
+   sequence), one round of each; at batch 1 with the device busy share too.
 
 TF32 is off for matmuls and cuDNN, so f32 products are full f32. Any
-failure raises (non-zero exit). The last line is the JSON device record;
-before it come a JSON line with each kernel's numbers and the nvidia-smi
-line. Needs one CUDA device; refuses to run without one.
+failure raises (non-zero exit) after one "phase_summary" line a phase run
+so far. The last line is the JSON device record; before it come the
+nvidia-smi line, a JSON line with each kernel's numbers, and one
+"phase_summary" line a phase (pass, wall, key figures). Needs one CUDA device; refuses to run without one.
 """
 
 import contextlib
@@ -114,6 +131,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from prego_tpu_torch.core.profiling import busy_us, device_spans, span_union
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "smoke"  # git-ignored: data, checkpoints, results
@@ -218,6 +237,9 @@ FUSED_WO = ("decode_attention_wo", "decode_attention_wo_res_upd")
 # (an ulp of x is 2^-8 to 2^-7 of x): the batched and the solo path round
 # their bf16 activations apart, and the logits move by about that much
 NEAR_TIE = 2.0 ** -6
+# the quantized modes and the 1B settings of the main path anticipate over
+# the first this many aggregated test videos (the 7B bf16 run: all 12)
+REPEAT_VIDEOS = 3
 # online detection: frames a block for each stream
 ONLINE_BLOCK = 256
 # speculative decoding (g): drafts a round, new tokens a request
@@ -226,6 +248,9 @@ SPEC_GEN = 32
 # an oracle that replays the speculative path's own greedy tokens: only the
 # budget's end may leave a draft unjudged
 ORACLE_MIN_ACCEPT = 0.95
+# the batch sizes whose plain and own-token replays run (B 1 runs plain
+# greedy and the self-8 draft)
+SPEC_REPLAY_B = (8,)
 # 7B projections (K, N) at decode: wqkv, wo, w13, w2 and the lm-head
 PROJ_7B = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
            "w2": (11008, 4096), "lm_head": (4096, 32000)}
@@ -264,21 +289,6 @@ def copies_past_l2(make, nbytes_one, at_least=2):
 
 # (what was timed, profiler sessions it took or None) for every device_ms_cycle
 DEVICE_MS_SESSIONS = []
-
-
-def busy_us(prof):
-    """The union of the device's activity intervals in a profiler session,
-    us: kernels that overlap (a programmatic dependent launch starts beside
-    its prerequisite) count once. None where the session saw no device
-    activity."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -math.inf
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy if spans else None
 
 
 def device_ms_cycle(fn, arg_sets, iters=20, attempts=3, what=""):
@@ -564,14 +574,18 @@ def check_kernels(dev):
         h = mk(1.0, M, D)
         out = ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
         ref = ffn.fused_ffn_block_reference(h, nw, w13, w2, 1e-5)
+        k7a = lambda *_: ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
         cases.append(dict(
             M=M, max_abs_err=max_err(out, ref),
-            ms=time_ms(lambda: ffn.fused_ffn_block(h, nw, w13, w2, 1e-5), 50),
+            ms=time_ms(k7a, 50),
+            # the weights (270 MB) pass the L2, so every call reads them
+            device_ms=device_ms_cycle(k7a, [()], what=f"K7a M {M}"),
             plain_ms=time_ms(lambda: ffn.fused_ffn_block_reference(h, nw, w13, w2, 1e-5), 50),
             **bound(2 * M * D * 3 * F, nbytes(h, nw, w13, w2, out)),
             library_ms=None,  # PyTorch has no fused norm + SwiGLU FFN call
         ))
         log_case("fused_ffn_block", f"M={M} D={D} F={F}", cases[-1])
+        log(f"  device {fmt_ms(cases[-1]['device_ms'])} ms")
     rows["fused_ffn_block"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases))
     del rows["fused_ffn_block"]["M"]
     for name, row in rows.items():
@@ -1564,12 +1578,15 @@ def run_main_path(dev):
     agg_path = WORK / "pipeline" / "aggregated.json"
     ant_args_list = anticipate_flags(dev, agg_path)
     ant_args = anticipate.parse_args(ant_args_list)
-    # the quantized modes over the same aggregated sequences
-    mode_args = {mode: anticipate.parse_args([*ant_args_list, *flags]) for mode, flags in
+    # the quantized modes and the 1B settings repeat the same per-call work
+    # over the first REPEAT_VIDEOS aggregated sequences
+    sub_path = WORK / "pipeline" / "aggregated_first.json"
+    sub_list = anticipate_flags(dev, sub_path)
+    mode_args = {mode: anticipate.parse_args([*sub_list, *flags]) for mode, flags in
                  (("int8_kv8", ["--quantize", "int8", "--kv_quant"]),
                   ("int8x8", ["--quantize", "int8x8"]))}
     # the 1B shape in bf16, run in each fusion setting
-    args_1b = anticipate.parse_args([a if a != "7b" else "1b" for a in ant_args_list])
+    args_1b = anticipate.parse_args([a if a != "7b" else "1b" for a in sub_list])
     t_llm = time.perf_counter()
     llm = anticipate.make_llm(ant_args)  # 7B bf16 weights from a seed
     torch.cuda.synchronize()
@@ -1594,6 +1611,8 @@ def run_main_path(dev):
     t3 = time.perf_counter()
     agg = aggregate_predictions(str(WORK / "pipeline" / "perframe_predictions.json"),
                                 str(agg_path))
+    sub = {v: agg[v] for v in sorted(agg)[:REPEAT_VIDEOS]}
+    sub_path.write_text(json.dumps(sub))
     steps_before = llm.llama.decode_steps
     result = anticipate.run(ant_args, llm=llm)
     torch.cuda.synchronize()
@@ -1638,13 +1657,14 @@ def run_main_path(dev):
     if set(agg) != set(raw) or any(len(a["pred"]) != len(a["changes_pred"]) for a in agg.values()):
         raise AssertionError("aggregated sequences malformed")
     n_steps = sum(len(a["pred"]) for a in agg.values())
-    for mode, res in (("bf16", result), *((k, v[0]) for k, v in modes.items()),
-                      ("int8_kv8_q8", q8_stack[0]),
-                      *((f"1b_{k}", v[0]) for k, v in fused.items())):
+    for mode, res, seqs in (("bf16", result, agg), *((k, v[0], sub) for k, v in modes.items()),
+                            ("int8_kv8_q8", q8_stack[0], sub),
+                            *((f"1b_{k}", v[0], sub) for k, v in fused.items())):
         m = res.metrics
-        if m is None or m["samples"] != n_steps or not 0.0 <= m["accuracy"] <= 1.0:
+        want = sum(len(a["pred"]) for a in seqs.values())
+        if m is None or m["samples"] != want or not 0.0 <= m["accuracy"] <= 1.0:
             raise AssertionError(f"anticipation metrics malformed ({mode}): {m}")
-        if set(res.preds) != set(agg) or not all(isinstance(p, set) for v in res.preds.values() for p in v):
+        if set(res.preds) != set(seqs) or not all(isinstance(p, set) for v in res.preds.values() for p in v):
             raise AssertionError(f"anticipated sets malformed ({mode})")
     m = result.metrics
     if not all(math.isfinite(x) for x in trained.epoch_losses + [rec["mean_AP"]]):
@@ -1664,10 +1684,10 @@ def run_main_path(dev):
     # k_new instead of the cache), so those two settings sample the same
     # tokens; PREGO_FUSED_LAYER=0 rounds the norm in another kernel
     same_as_default = {
-        setting: sum(a == b for v in agg for a, b in zip(res.preds[v], fused["default"][0].preds[v]))
+        setting: sum(a == b for v in sub for a, b in zip(res.preds[v], fused["default"][0].preds[v]))
         for setting, (res, *_) in fused.items()}
     # K9 and K7q sum in another order than K4, so a sampled token may differ
-    q8_same = sum(a == b for v in agg
+    q8_same = sum(a == b for v in sub
                   for a, b in zip(q8_stack[0].preds[v], modes["int8_kv8"][0].preds[v]))
     st = trained.stats
     report = {
@@ -1681,6 +1701,8 @@ def run_main_path(dev):
         "anticipation_s": t4 - t3, "llm_calls": len(result.llm_latencies),
         "s_per_llm_call": (t4 - t3) / max(len(result.llm_latencies), 1),
         "decode_steps": llm.llama.decode_steps - steps_before, "steps_anticipated": n_steps,
+        "repeat_videos": REPEAT_VIDEOS,
+        "repeat_steps": sum(len(a["pred"]) for a in sub.values()),
         "verdict_metrics": {k: m[k] for k in ("samples", "tp", "fp", "fn", "tn", "accuracy", "f1")},
         "quantized_modes": {
             mode: {"anticipation_s": wall, "llm_calls": len(res.llm_latencies),
@@ -1968,7 +1990,8 @@ def spec_runs(lm, prompts, label, gen_len=SPEC_GEN):
     row must equal plain greedy up to a near-tie (the verify and plain
     decode round near-ties apart, and a plain-greedy replay loses its row
     after the first such flip), and the replay of the speculative path's
-    own tokens must reach ORACLE_MIN_ACCEPT."""
+    own tokens must reach ORACLE_MIN_ACCEPT. The replays run only at the
+    batch sizes of SPEC_REPLAY_B."""
     from prego_tpu_torch.models.llama.speculative import SpeculativeLlama, self_draft
 
     out = {}
@@ -1981,13 +2004,15 @@ def spec_runs(lm, prompts, label, gen_len=SPEC_GEN):
         (want, _), wall = _timed(lambda: lm.generate(ps, gen_len, temperature=0.0))
         n_tok = sum(len(w) for w in want)
         res = {"plain": {"wall_s": wall, "tokens": n_tok, "ms_per_token": wall * 1e3 / n_tok}}
-        # each replay runs k tokens past the budget, so that the last
-        # round's drafts are known too
-        replay = {"oracle_plain": lm.generate(ps, gen_len + SPEC_K, temperature=0.0)[0]}
         self8 = lambda: SpeculativeLlama(lm, *self_draft(lm.params, lm.config, 8), k=SPEC_K)
-        replay["oracle_spec"] = self8().generate(ps, gen_len + SPEC_K, temperature=0.0)
-        runs = {"self-8": self8(), "oracle_plain": SpeculativeLlama(lm, k=SPEC_K),
-                "oracle_spec": SpeculativeLlama(lm, k=SPEC_K)}
+        runs = {"self-8": self8()}
+        replay = {}
+        if B in SPEC_REPLAY_B:
+            # each replay runs k tokens past the budget, so that the last
+            # round's drafts are known too
+            replay = {"oracle_plain": lm.generate(ps, gen_len + SPEC_K, temperature=0.0)[0],
+                      "oracle_spec": self8().generate(ps, gen_len + SPEC_K, temperature=0.0)}
+            runs.update({name: SpeculativeLlama(lm, k=SPEC_K) for name in replay})
         for name, spec in runs.items():
             kw = ({"oracle_tokens": [p + w for p, w in zip(ps, replay[name])]}
                   if name in replay else {})
@@ -2005,8 +2030,10 @@ def spec_runs(lm, prompts, label, gen_len=SPEC_GEN):
             if not all(g["near_tie"] for g in gaps):
                 raise AssertionError(f"{label} {name} B {B}: speculative output differs from "
                                      f"plain greedy beyond a near-tie: {gaps}")
-        res["oracle_spec"]["equal_to_self8"] = res["self-8"].pop("tokens") == [
-            r[:len(w)] for r, w in zip(replay["oracle_spec"], want)]
+        self8_tokens = res["self-8"].pop("tokens")
+        if "oracle_spec" in res:
+            res["oracle_spec"]["equal_to_self8"] = self8_tokens == [
+                r[:len(w)] for r, w in zip(replay["oracle_spec"], want)]
         for name in runs:
             res[f"{name}_over_plain"] = res[name]["ms_per_token"] / res["plain"]["ms_per_token"]
         log(f"(g) {label}, B {B}, k {SPEC_K}, {gen_len} new tokens: ms per token plain "
@@ -2014,7 +2041,7 @@ def spec_runs(lm, prompts, label, gen_len=SPEC_GEN):
             + "; ".join(f"{n} {res[n]['ms_per_token']:.3f} (acceptance {res[n]['accepted']}/"
                         f"{res[n]['proposed']}, {res[n]['rounds']} rounds)" for n in runs)
             + f"; {json.dumps(res)}")
-        acc = res["oracle_spec"]["acceptance"]
+        acc = res["oracle_spec"]["acceptance"] if "oracle_spec" in res else 1.0
         if acc < ORACLE_MIN_ACCEPT:
             raise AssertionError(f"{label} B {B}: the replay of the speculative path's own tokens "
                                  f"accepted {acc:.4f} < {ORACLE_MIN_ACCEPT}")
@@ -2277,16 +2304,6 @@ class FirstBatches:
         return self.n
 
 
-def _span_union(spans):
-    out = []
-    for s, e in sorted(spans):
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
-        else:
-            out.append([s, e])
-    return out
-
-
 def check_native_batches(cfg, dev):
     """(i1) One epoch of the native sampler (pinned, copied to the card with
     non_blocking, the ring's event after each copy, no host wait between
@@ -2347,14 +2364,13 @@ def h2d_profile(cfg, dev, backend):
         run(n)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = [e for e in dev_events if e.name.startswith("Memcpy HtoD")]
-    kernels = _span_union((e.time_range.start, e.time_range.end) for e in dev_events
-                          if not e.name.startswith(("Memcpy", "Memset")))
+    dev_spans = device_spans(prof)
+    copies = [sp for sp in dev_spans if sp[0].startswith("Memcpy HtoD")]
+    kernels = span_union((s, t) for name, s, t in dev_spans
+                         if not name.startswith(("Memcpy", "Memset")))
     by_kind, overlapped, total = {}, 0.0, 0.0
-    for e in copies:
-        s, t = e.time_range.start, e.time_range.end
-        by_kind[e.name] = by_kind.get(e.name, 0.0) + (t - s) / 1e3 / n
+    for name, s, t in copies:
+        by_kind[name] = by_kind.get(name, 0.0) + (t - s) / 1e3 / n
         total += t - s
         overlapped += sum(max(0.0, min(t, ke) - max(s, ks)) for ks, ke in kernels)
     busy = busy_us(prof)
@@ -2365,11 +2381,10 @@ def h2d_profile(cfg, dev, backend):
 
 def run_native_engine(cfg, dev):
     """(i1) run_train on the native and the numpy data backends, 2 epochs
-    each, in the order native, numpy, numpy, native; the batches bit for
-    bit; the copies under the profiler."""
+    each; the batches bit for bit; the copies under the profiler."""
     from prego_tpu_torch.cli.train import run_train
 
-    order = ("native", "numpy", "numpy", "native")
+    order = ("native", "numpy")
     runs, counts = [], {"native": {}, "numpy": {}}
     for i, backend in enumerate(order):
         c = zoo_config(cfg, f"i1_{i}_{backend}", data_backend=backend)
@@ -2393,7 +2408,7 @@ def run_native_engine(cfg, dev):
            "max_loss_rel": loss_rel, "max_mAP_diff": map_diff, "rates": rate,
            "batches_bit_equal": n_batches, "profiles": profiles}
     log(f"(i1) native vs numpy data backends, 2 epochs each in the order {order}: per-epoch "
-        f"losses and mAPs bit-equal across the four runs: {bit_equal} (max loss rel "
+        f"losses and mAPs bit-equal across the runs: {bit_equal} (max loss rel "
         f"{loss_rel:.3e}, tol 1e-5; max mAP diff {map_diff:.3e}, tol 1e-4); "
         f"steps/s native {[round(x['steps_per_s'], 3) for x in rate['native']]}, numpy "
         f"{[round(x['steps_per_s'], 3) for x in rate['numpy']]}; windows/s native "
@@ -2921,6 +2936,364 @@ def run_cache_chat(dev, llms, sent):
     return out, counts
 
 
+# ---- 3f. (k) tensor, data and sequence parallelism, and profiling ----
+
+# (k1): new tokens a prompt, greedy, for the driver's first 8 prompts
+PARALLEL_GEN = 16
+# the kernels that put a norm or the residual inside a row-parallel
+# product: off under tensor parallelism, as every kernel is under the JAX
+# package's tp_serving (prego_tpu/models/llama/config.py:30-37)
+TP_OFF = ("fused_ffn_block", "fused_ffn", "fused_ffn_block_q8", "decode_attention_wo",
+          "decode_attention_wo_res_upd", "fused_dense_q8")
+# (k2): the dp step against the one-rank step on the same card, the bars of
+# phase 2's card-vs-plain-bf16 step (loss, gradients in norm and by
+# element: relu units near 0 may switch), params within K6's tolerance of
+# the tree's largest parameter
+DP_LOSS_REL, DP_GRAD_NORM_REL, DP_GRAD_MAX_REL = 1e-4, 2e-2, 0.5
+# (k3): the 7B bf16 check's tolerance (phase 2), relative to max |logit|
+SP_REL = 3e-2
+
+
+def draw_llama_blocks(cfg, seed, dev, mesh=None):
+    """``init_params``'s distribution, drawn from ``seed`` on the card one
+    tensor at a time in a fixed order, each cut to this rank's blocks under
+    ``llama_param_specs`` (``mesh``'s tp axis) before the next is drawn: no
+    rank holds the whole tree. Without a mesh, the whole tree."""
+    from prego_tpu_torch.parallel.sharding import llama_param_specs, local_slice
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    spec = llama_param_specs(cfg)
+    D, V, F = cfg.dim, cfg.vocab_size, cfg.ffn_hidden
+    H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+
+    def dense(d_in, d_out, s):
+        w = torch.randn(d_in, d_out, generator=gen, device=dev, dtype=torch.float32)
+        w = (w * d_in ** -0.5).to(torch.bfloat16)
+        return w if mesh is None else local_slice(w, s, mesh).clone()
+
+    layers = []
+    for lspec in spec["layers"]:
+        a, f = lspec["attention"], lspec["feed_forward"]
+        layers.append({
+            "attention": {"wq": dense(D, H * hd, a["wq"]), "wk": dense(D, KV * hd, a["wk"]),
+                          "wv": dense(D, KV * hd, a["wv"]), "wo": dense(H * hd, D, a["wo"])},
+            "feed_forward": {"w1": dense(D, F, f["w1"]), "w2": dense(F, D, f["w2"]),
+                             "w3": dense(D, F, f["w3"])},
+            "attention_norm": torch.ones(D, dtype=torch.bfloat16, device=dev),
+            "ffn_norm": torch.ones(D, dtype=torch.bfloat16, device=dev)})
+    return {"tok_embeddings": dense(V, D, spec["tok_embeddings"]), "layers": layers,
+            "norm": torch.ones(D, dtype=torch.bfloat16, device=dev),
+            "output": dense(D, V, spec["output"])}
+
+
+def _launched(counts):
+    return {name: n for name, n in counts.items() if n}
+
+
+@torch.no_grad()
+def _k1_rank(prompts, want, ckpt):
+    """(k1) on one rank: the 7B bf16 tree's blocks over the world's tp
+    ranks, greedy tokens of ``prompts`` (against ``want`` under the
+    near-tie rule where given), the decode step and its collectives alone at
+    B 8; then torch-llama int8 over ``ckpt`` split the same way."""
+    import torch.distributed as dist
+
+    from prego_tpu_torch.anticipation.llm import TorchLlamaLLM, fabricated_config
+    from prego_tpu_torch.checkpoint.io import tree_leaves
+    from prego_tpu_torch.models.llama import ByteTokenizer, Llama
+    from prego_tpu_torch.models.llama.model import _all_gather, forward, init_cache
+    from prego_tpu_torch.parallel import llama_tp_config, tp_mesh
+    from prego_tpu_torch.parallel.mesh import rank_device
+
+    dev = rank_device("cuda")
+    mesh = tp_mesh()
+    tp = mesh.shape["tp"]
+    cfg = fabricated_config("7b", max_seq_len=512, max_batch_size=8)
+    t0 = time.perf_counter()
+    params = draw_llama_blocks(cfg, 23, dev, mesh)
+    cfg_tp = llama_tp_config(cfg, mesh)
+    lm = Llama(params, ByteTokenizer(), cfg_tp)
+    out = {"rank": dist.get_rank(), "tp": tp, "backend": dist.get_backend(),
+           "draw_s": time.perf_counter() - t0,
+           "block_bytes": nbytes(*tree_leaves(params))}
+    lm.generate([prompts[0]], 2, temperature=0.0)  # the shapes' first calls
+    (toks, _), counts, out["generate_s"] = count_launches(
+        lambda: lm.generate(prompts, PARALLEL_GEN, temperature=0.0))
+    out["launches"] = _launched(counts)
+    out["tokens"] = toks
+    out["mismatches"] = near_tie_gaps(lm, prompts, want, toks) if want is not None else []
+    # a decode step at B 8 and the same step's collectives alone
+    B = 8
+    cache = init_cache(cfg_tp, B, torch.bfloat16, dev)
+    fill = torch.randint(0, 256, (B, 128), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(9))
+    forward(lm.params, fill, 0, cache, cfg_tp, lm.rope)
+    nxt = fill[:, -1:]
+    out["decode_step_ms_b8"] = time_ms(
+        lambda: forward(lm.params, nxt, 128, cache, cfg_tp, lm.rope), 10)
+    g = cfg_tp.tp_group
+    h = torch.zeros(B, 1, cfg.dim, device=dev)
+    emb = torch.zeros(B, 1, cfg.dim // tp, dtype=torch.bfloat16, device=dev)
+    logit = torch.zeros(B, 1, cfg.vocab_size // tp, device=dev)
+
+    def collectives():
+        for _ in range(2 * cfg.n_layers):  # wo's and w2's partial products
+            dist.all_reduce(h, group=g)
+        _all_gather(emb, -1, g)
+        _all_gather(logit, -1, g)
+
+    out["collectives_ms_per_step_b8"] = time_ms(collectives, 10)
+    out["collectives_per_step"] = {"all_reduce": 2 * cfg.n_layers, "all_gather": 2}
+    del lm, params, cache
+    torch.cuda.empty_cache()
+    # int8 weights over (h)'s checkpoint: the unfused int8 tree split over tp
+    llm = TorchLlamaLLM(ckpt_dir=ckpt, tokenizer_path="byte", max_seq_len=512,
+                        max_batch_size=8, device=dev, quantize="int8", tp=tp)
+    q8 = llm.llama
+    q8.generate([prompts[0]], 2, temperature=0.0)
+    (out["int8_tokens"], _), counts, _ = count_launches(
+        lambda: q8.generate(prompts, PARALLEL_GEN, temperature=0.0))
+    out["int8_launches"] = _launched(counts)
+    out["int8_tp"] = q8.config.tp_size
+    out["int8_layout"] = sorted(q8.params["layers"][0]["attention"])
+    return out
+
+
+def _dp_batch():
+    """Phase 2's 16 windows at the recipe's widths; the last 3 padding, so
+    the two dp ranks hold 8 and 5 valid windows."""
+    rng = np.random.default_rng(2)
+    rgb = torch.from_numpy(rng.standard_normal((16, 128, 2048), dtype=np.float32))
+    target = torch.from_numpy(np.eye(86, dtype=np.float32)[rng.integers(0, 86, 16)])
+    valid = torch.ones(16)
+    valid[13:] = 0
+    return rgb, target, valid
+
+
+def _k2_rank():
+    """(k2) on one rank: the dp train step (K1 + K6) on this rank's half of
+    the batch, and on rank 0 also the one-rank step on the whole batch,
+    compared there."""
+    import torch.distributed as dist
+
+    from prego_tpu_torch.checkpoint.io import tree_leaves
+    from prego_tpu_torch.core import RecognitionConfig
+    from prego_tpu_torch.core.seed import make_generator
+    from prego_tpu_torch.models.miniroad import MiniROAD
+    from prego_tpu_torch.parallel import make_mesh
+    from prego_tpu_torch.parallel.mesh import rank_device
+    from prego_tpu_torch.train import build_optimizer, make_train_step
+
+    dev = rank_device("cuda")
+    cfg = RecognitionConfig.from_dict({**recognition_config("unused"), "dropout": 0.0})
+    model = MiniROAD(cfg)
+    init = model.init(make_generator(2))
+    rgb, target, valid = (x.to(dev) for x in _dp_batch())
+    mesh = make_mesh([("dp", dist.get_world_size())])
+    runs = {}
+    for name, m in (("dp", mesh), ("one", None)):
+        if name == "one" and dist.get_rank() != 0:
+            break
+        params = _to(init, dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        step = make_train_step(model, build_optimizer(cfg, params), flow_is_zero=True,
+                               gru_backend="pallas_train", mesh=m)
+        step(params, rgb, None, target, valid, None)  # the shapes' first call
+        params = _to(init, dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        step = make_train_step(model, build_optimizer(cfg, params), flow_is_zero=True,
+                               gru_backend="pallas_train", mesh=m)
+        loss, counts, wall = count_launches(
+            lambda: float(step(params, rgb, None, target, valid, None)))
+        runs[name] = {"loss": loss, "wall_s": wall, "launches": _launched(counts),
+                      "params": [p.detach() for p in leaves],
+                      "grads": [p.grad.detach() for p in leaves]}
+    out = {"rank": dist.get_rank(), "valid": int(valid.reshape(dist.get_world_size(), -1)[
+        dist.get_rank()].sum()), "loss": runs["dp"]["loss"], "wall_s": runs["dp"]["wall_s"],
+        "launches": runs["dp"]["launches"]}
+    if "one" in runs:
+        dp, one = runs["dp"], runs["one"]
+        out["one_rank"] = {"loss": one["loss"], "wall_s": one["wall_s"]}
+        out["loss_rel"] = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
+        out["grad_norm_rel"] = max(float((g - r).norm() / r.norm())
+                                   for g, r in zip(dp["grads"], one["grads"]))
+        out["grad_max_rel"] = max(rel_err(g, r) for g, r in zip(dp["grads"], one["grads"]))
+        # against the tree's largest parameter: a leaf initialized to 0 (a
+        # bias) holds only +-lr after one step, where the gradient's sign may
+        # differ between the two runs
+        out["param_max_rel"] = (max(max_err(g, r) for g, r in zip(dp["params"], one["params"]))
+                                / max(float(r.abs().max()) for r in one["params"]))
+    return out
+
+
+@torch.no_grad()
+def _k3_rank():
+    """(k3) on one rank: the sp prefill at 7B width, 2 layers, B 2, S 512,
+    each rank its 256 tokens, the cache replicated; against this rank's
+    own one-rank prefill of the whole sequence."""
+    import torch.distributed as dist
+
+    from prego_tpu_torch.anticipation.llm import fabricated_config
+    from prego_tpu_torch.models.llama.model import forward, init_cache
+    from prego_tpu_torch.parallel import make_mesh
+    from prego_tpu_torch.parallel.mesh import rank_device
+    from prego_tpu_torch.parallel.sp import make_sp_prefill
+
+    dev = rank_device("cuda")
+    cfg = fabricated_config("7b", max_seq_len=512, max_batch_size=8, n_layers=2)
+    params = draw_llama_blocks(cfg, 29, dev)
+    mesh = make_mesh([("sp", dist.get_world_size())])
+    r, n = mesh.index("sp"), mesh.shape["sp"]
+    tokens = torch.randint(0, 256, (2, 512), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(31))
+    fn = make_sp_prefill(cfg, mesh, cache_sharding="replicated")
+    fn(params, tokens, 0, init_cache(cfg, 2, torch.bfloat16, dev))  # the shapes' first call
+    (logits, cache), counts, wall = count_launches(
+        lambda: fn(params, tokens, 0, init_cache(cfg, 2, torch.bfloat16, dev)))
+    launches = _launched(counts)
+    want, want_cache = forward(params, tokens, 0, init_cache(cfg, 2, torch.bfloat16, dev), cfg)
+    S = tokens.shape[1] // n
+    block = want[:, r * S:(r + 1) * S]
+    return {"rank": r, "wall_s": wall, "launches": launches,
+            "logit_rel": max_err(logits, block) / float(block.abs().max()),
+            "cache_rel": max(max_err(a, b) / float(b.abs().max())
+                             for key in ("k", "v") for a, b in zip(cache[key], want_cache[key])),
+            "finite": bool(torch.isfinite(logits).all())}
+
+
+def run_parallel(dev, sent, ckpt):
+    """(k1)-(k3): tensor, data and sequence parallelism on this one card,
+    ranks as processes. (k1) the 7B bf16 decode over tp 1 (NCCL) and tp 2
+    (two ranks on the card need gloo): the same greedy tokens up to a
+    near-tie, K2 on each rank and no fused kernel, and torch-llama int8
+    over (h)'s checkpoint (K4 on each rank); (k2) the dp 2 train step
+    against the one-rank step; (k3) the sp 2 prefill against the one-rank
+    prefill. Each rank's kernel counts from 0 over its timed part."""
+    from prego_tpu_torch.anticipation.llm import TorchLlamaLLM
+    from prego_tpu_torch.models.llama import ByteTokenizer
+    from prego_tpu_torch.parallel import run_ranks
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p, bos=True, eos=False) for call, _ in sent[:8] for p in call][:8]
+    if len(prompts) < 8:
+        raise AssertionError("(k1) needs 8 anticipation prompts")
+    out, counts = {}, {}
+    (one,), wall = _timed(lambda: run_ranks(_k1_rank, 1, "nccl", "cuda", (prompts, None, ckpt)))
+    out["k1_tp1_nccl"] = {**{k: v for k, v in one.items() if "tokens" not in k}, "wall_s": wall}
+    ranks, wall = _timed(lambda: run_ranks(_k1_rank, 2, "gloo", "cuda",
+                                           (prompts, one["tokens"], ckpt)))
+    out["k1_tp2_gloo"] = {"wall_s": wall, "ranks": [
+        {k: v for k, v in r.items() if "tokens" not in k} for r in ranks]}
+    counts["k1_tp1_nccl"] = one["launches"]
+    counts["k1_tp2_gloo"] = [r["launches"] for r in ranks]
+    counts["k1_int8_tp2"] = [r["int8_launches"] for r in ranks]
+    if ranks[0]["tokens"] != ranks[1]["tokens"]:
+        raise AssertionError("(k1) the two tp ranks generated different tokens")
+    gaps = ranks[0]["mismatches"]
+    equal = 8 - len(gaps)
+    # int8: the tp 2 tokens against the one-card int8 model over the same
+    # checkpoint (fused layout), a mismatch a near-tie of the one-card run
+    one_card = TorchLlamaLLM(ckpt_dir=ckpt, tokenizer_path="byte", max_seq_len=512,
+                             max_batch_size=8, device=dev, quantize="int8", tp=1).llama
+    want_q8, _ = one_card.generate(prompts, PARALLEL_GEN, temperature=0.0)
+    q8_gaps = near_tie_gaps(one_card, prompts, want_q8, ranks[0]["int8_tokens"])
+    del one_card
+    torch.cuda.empty_cache()
+    out["k1_tp2_gloo"].update(rows_equal_to_tp1=equal, mismatches=gaps,
+                              int8_rows_equal_to_one_card=8 - len(q8_gaps),
+                              int8_mismatches=q8_gaps)
+    log(f"(k1) 7B bf16, 8 prompts, {PARALLEL_GEN} greedy tokens: tp 1 (nccl) "
+        f"{json.dumps(out['k1_tp1_nccl'])}; tp 2 (gloo, one card) {json.dumps(out['k1_tp2_gloo'])}")
+    if not all(g["near_tie"] for g in gaps + q8_gaps):
+        raise AssertionError(f"(k1) tp 2 tokens differ beyond a near-tie: {gaps} {q8_gaps}")
+    for r in ranks:
+        if not (r["launches"].get("decode_attention", 0) > 0
+                and r["int8_launches"].get("int8_matmul", 0) > 0):
+            raise AssertionError(f"(k1) rank {r['rank']}: K2 {r['launches']} or K4 "
+                                 f"{r['int8_launches']} not launched")
+        fused = [n for n in TP_OFF if r["launches"].get(n) or r["int8_launches"].get(n)]
+        if fused or r["tp"] != 2 or r["int8_tp"] != 2:
+            raise AssertionError(f"(k1) rank {r['rank']}: fused kernels {fused} launched under "
+                                 f"tp, or tp {r['tp']} / {r['int8_tp']}")
+    if not one["launches"].get("decode_attention") or one["backend"] != "nccl":
+        raise AssertionError(f"(k1) the tp 1 run over nccl: {one['launches']}")
+
+    ranks, wall = _timed(lambda: run_ranks(_k2_rank, 2, "gloo", "cuda"))
+    out["k2_dp2"] = {"wall_s": wall, "ranks": ranks}
+    counts["k2_dp2"] = [r["launches"] for r in ranks]
+    r0 = ranks[0]
+    log(f"(k2) dp 2 train step, 16 windows (8 and 5 valid) at the recipe's widths, K1 + K6: "
+        f"{json.dumps(out['k2_dp2'])} (tol: loss {DP_LOSS_REL:g}, gradients {DP_GRAD_NORM_REL:g} "
+        f"in norm, {DP_GRAD_MAX_REL:g} by element, params {TOL['gru_bwd']:.3e})")
+    if not (r0["loss_rel"] <= DP_LOSS_REL and r0["grad_norm_rel"] <= DP_GRAD_NORM_REL
+            and r0["grad_max_rel"] <= DP_GRAD_MAX_REL and r0["param_max_rel"] <= TOL["gru_bwd"]):
+        raise AssertionError("(k2) the dp step disagrees with the one-rank step")
+    for r in ranks:
+        if not (r["launches"].get("gru_recurrence") and r["launches"].get("gru_bwd")):
+            raise AssertionError(f"(k2) rank {r['rank']}: K1 / K6 not launched {r['launches']}")
+
+    ranks, wall = _timed(lambda: run_ranks(_k3_rank, 2, "gloo", "cuda"))
+    out["k3_sp2"] = {"wall_s": wall, "ranks": ranks}
+    counts["k3_sp2"] = [r["launches"] for r in ranks]
+    log(f"(k3) sp 2 prefill, 7B width x 2 layers, B 2, S 512, cache replicated: "
+        f"{json.dumps(out['k3_sp2'])} (tol {SP_REL:g} of max |ref|)")
+    if not all(r["finite"] and r["logit_rel"] <= SP_REL and r["cache_rel"] <= SP_REL
+               for r in ranks):
+        raise AssertionError("(k3) the sp prefill disagrees with the one-rank prefill")
+    return out, counts
+
+
+@torch.no_grad()
+def run_profiling(dev, lm):
+    """(k4) core/profiling.py on the card: ``trace`` around four 7B bf16
+    decode steps (B 1, at position 128), each inside ``annotate
+    ("decode_step")``, timed by a ``ThroughputMeter`` that synchronizes the
+    card; the trace file must hold the annotation and K2's and K7a's
+    kernels."""
+    from prego_tpu_torch.core.profiling import ThroughputMeter, annotate, trace
+    from prego_tpu_torch.models.llama.model import forward, init_cache
+
+    cache = init_cache(lm.config, 1, lm.dtype, dev)
+    toks = torch.randint(0, 256, (1, 128), device=dev)
+    forward(lm.params, toks, 0, cache, lm.config, lm.rope)
+    nxt = toks[:, -1:]
+    logdir = WORK / "trace_k4"
+    if logdir.exists():
+        for f in logdir.iterdir():
+            f.unlink()
+    meter = ThroughputMeter(warmup=1, sync=torch.cuda.synchronize)
+
+    def traced():
+        with trace(str(logdir)) as prof:
+            for i in range(4):
+                meter.start()
+                with annotate("decode_step"):
+                    forward(lm.params, nxt, 128 + i, cache, lm.config, lm.rope)
+                meter.stop(1)
+        return prof
+
+    prof, counts, _ = count_launches(traced)
+    launches = _launched(counts)
+    (path,) = logdir.glob("*.pt.trace.json")
+    names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
+    found = {"decode_step": "decode_step" in names,
+             "K2 decode_cluster_kernel": any("decode_cluster_kernel" in n for n in names),
+             "K7a ffn_up_kernel": any("ffn_up_kernel" in n for n in names)}
+    busy = busy_us(prof)
+    out = {"trace_bytes": path.stat().st_size, "found": found,
+           "tokens_per_s": meter.items_per_sec, "launches": launches,
+           "device_busy_ms": None if busy is None else busy / 1e3}
+    log(f"(k4) trace of 4 7B bf16 decode steps: {json.dumps(out)}")
+    if not all(found.values()):
+        raise AssertionError(f"(k4) the trace lacks {found}")
+    return out, launches
+
+
 # ---- 4. train step and decode step times ----
 
 def _busy_share(prof, wall_ms):
@@ -3050,7 +3423,7 @@ def _alternating(lm, prefix, settings, dev, out, rounds):
                 f"rounds (min {xs[0]:.3f}, max {xs[-1]:.3f})")
 
 
-def decode_step_ms(llms, llm_1b, dev, rounds=6, rounds_q8=4):
+def decode_step_ms(llms, llm_1b, dev, rounds=1, rounds_q8=1):
     """Decode steps of the 7B modes; of the 7B int8 + int8 KV model with
     the int8 fusion stack off and on, in ``rounds_q8`` alternating rounds;
     and of the 1B model in four fusion settings (the three of the main path
@@ -3065,6 +3438,39 @@ def decode_step_ms(llms, llm_1b, dev, rounds=6, rounds_q8=4):
     return out
 
 
+# (phase, pass, wall s, its key figures) of each phase run so far
+PHASES = []
+
+
+def run_phase(name, fn, figures=None):
+    """``fn()`` as phase ``name``: its wall and, through ``figures(out)``,
+    its key figures go into PHASES. A phase that raises is recorded as
+    failed, the summary so far printed, and the exception raised on."""
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except BaseException as e:
+        PHASES.append({"phase": name, "pass": False, "wall_s": round(time.perf_counter() - t0, 1),
+                       "error": f"{type(e).__name__}: {str(e)[:300]}"})
+        print_phases()
+        raise
+    PHASES.append({"phase": name, "pass": True, "wall_s": round(time.perf_counter() - t0, 1),
+                   **({"figures": figures(out)} if figures else {})})
+    log(f"phase {name}: passed in {PHASES[-1]['wall_s']} s")
+    return out
+
+
+def print_phases():
+    """One compact line per phase, so that the end of the output holds
+    every phase's result."""
+    for p in PHASES:
+        print(json.dumps({"phase_summary": p}, default=str), flush=True)
+
+
+def _r(x, n=4):
+    return None if x is None else round(x, n)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3076,30 +3482,64 @@ def main():
     smi = nvidia_smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    build_kernels()
-    rows = check_kernels(dev)
-    q_rows, q_cases = check_quant_kernels(dev)
-    rows.update(q_rows)
-    f_rows, f_cases = check_fused_kernels(dev)
-    rows.update(f_rows)
-    q8_rows, q8_cases = check_q8_fused_kernels(dev)
-    rows.update(q8_rows)
     from prego_tpu_torch.ops import kernels
-    phase1 = {name: kernels()[name].launches for name in OFF_PATH}  # off the path: phase 1 only
-    log(f"launches in phase 1 of the kernels on no path: {phase1}")
-    if not all(n > 0 for n in phase1.values()):
-        raise AssertionError(f"a kernel on no path was not launched in phase 1: {phase1}")
-    log(f"device-time readings: {device_ms_report()}")
-    layer = gru_layer_yardstick(dev)
-    cpu = check_against_cpu(dev)
-    llms, llm_1b, cfg, launches, report, raw = run_main_path(dev)
-    serving, cb_counts, sent = run_serving(dev, llms, llm_1b, cfg, report, raw)
-    spec, spec_counts = run_speculative(dev, llms, sent)
-    ckpt = run_checkpoint_load(dev)
-    zoo, zoo_counts = run_recognition_zoo(cfg, dev)
-    cache_chat, cc_counts = run_cache_chat(dev, llms, sent)
-    train = train_step_ms(cfg, dev)
-    decode = decode_step_ms(llms, llm_1b, dev)
+
+    run_phase("build", build_kernels)
+
+    def phase1():
+        rows = check_kernels(dev)
+        q_rows, q_cases = check_quant_kernels(dev)
+        rows.update(q_rows)
+        f_rows, f_cases = check_fused_kernels(dev)
+        rows.update(f_rows)
+        q8_rows, q8_cases = check_q8_fused_kernels(dev)
+        rows.update(q8_rows)
+        off = {name: kernels()[name].launches for name in OFF_PATH}  # phase 1 only
+        log(f"launches in phase 1 of the kernels on no path: {off}")
+        if not all(n > 0 for n in off.values()):
+            raise AssertionError(f"a kernel on no path was not launched in phase 1: {off}")
+        log(f"device-time readings: {device_ms_report()}")
+        return rows, q_cases, f_cases, q8_cases, off
+
+    rows, q_cases, f_cases, q8_cases, phase1_counts = run_phase(
+        "1 kernels vs plain", phase1, lambda o: {
+            "kernels": len(o[0]), "K7a_device_ms_m1": _r(o[0]["fused_ffn_block"]["device_ms"]),
+            "K2_device_ms": _r(o[0]["decode_attention"]["device_ms"])})
+    layer = run_phase("1 GRU layer yardstick", lambda: gru_layer_yardstick(dev))
+    cpu = run_phase("2 card vs CPU", lambda: check_against_cpu(dev), lambda o: {
+        "llama_rel_logit_err": _r(o["llama_rel_logit_err"], 6)})
+    llms, llm_1b, cfg, launches, report, raw = run_phase(
+        "3 main path", lambda: run_main_path(dev), lambda o: {
+            "recognition_mAP": _r(o[4]["recognition_mAP"]),
+            "s_per_llm_call_7b_bf16": _r(o[4]["s_per_llm_call"])})
+    serving, cb_counts, sent = run_phase(
+        "(a)-(f) serving", lambda: run_serving(dev, llms, llm_1b, cfg, report, raw))
+    spec, spec_counts = run_phase(
+        "(g) speculative", lambda: run_speculative(dev, llms, sent), lambda o: {
+            "self8_over_plain_b1": _r(o[0]["bf16"]["b1"]["self-8_over_plain"])})
+    ckpt = run_phase("(h) checkpoint load", lambda: run_checkpoint_load(dev), lambda o: {
+        "bf16_load_s": _r(o["bf16"]["load_s"], 3)})
+    zoo, zoo_counts = run_phase("(i) recognition zoo", lambda: run_recognition_zoo(cfg, dev))
+    cache_chat, cc_counts = run_phase(
+        "(j) cache and chat", lambda: run_cache_chat(dev, llms, sent), lambda o: {
+            p: _r(v["part_s"], 3) for p, v in o[0].items()})
+    train = run_phase("4 train step", lambda: train_step_ms(cfg, dev), lambda o: {
+        "train_step_ms": _r(o["train_step_ms"], 3)})
+    decode = run_phase("4 decode steps", lambda: decode_step_ms(llms, llm_1b, dev), lambda o: {
+        "7b_bf16_b1_ms": _r(o["7B bf16_b1"][0], 3)})
+    profiled, k4_counts = run_phase(
+        "(k4) profiling", lambda: run_profiling(dev, llms["bf16"].llama), lambda o: {
+            "tokens_per_s": _r(o[0]["tokens_per_s"], 2), **o[0]["found"]})
+    del llms, llm_1b  # (k1)-(k3) run ranks as processes on this card
+    torch.cuda.empty_cache()
+    parallel, par_counts = run_phase(
+        "(k1)-(k3) parallel", lambda: run_parallel(dev, sent, str(WORK / "ckpt_7b_2layers")),
+        lambda o: {"k1_rows_equal": o[0]["k1_tp2_gloo"]["rows_equal_to_tp1"],
+                   "k1_gloo_collectives_ms_b8":
+                       _r(o[0]["k1_tp2_gloo"]["ranks"][0]["collectives_ms_per_step_b8"], 3),
+                   "k2_grad_norm_rel": _r(o[0]["k2_dp2"]["ranks"][0]["grad_norm_rel"], 6),
+                   "k3_logit_rel": _r(max(r["logit_rel"] for r in o[0]["k3_sp2"]["ranks"]), 6)})
+    par_counts["k4"] = k4_counts
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
     jax_package = sorted(m for m in sys.modules if m == "prego_tpu" or m.startswith("prego_tpu."))
@@ -3109,14 +3549,20 @@ def main():
     log(json.dumps({"summary": {**report, "cpu_checks": cpu, "serving": serving,
                                 "speculative": spec, "checkpoint_load": ckpt,
                                 "recognition_zoo": zoo, "cache_chat": cache_chat,
+                                "parallel": parallel, "profiling": profiled,
                                 "gru_layer": layer, **train,
                                 "quant_kernel_cases": q_cases, "fused_kernel_cases": f_cases,
                                 "q8_fused_kernel_cases": q8_cases,
-                                "off_path_phase1_launches": phase1,
+                                "off_path_phase1_launches": phase1_counts,
                                 "device_ms_sessions": device_ms_report(),
                                 "decode_ms_per_step": decode,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
                                 "total_s": time.perf_counter() - t_start}}))
+    print_phases()
+
+    def per_rank(c, name):
+        return [r.get(name, 0) for r in c] if isinstance(c, list) else c.get(name, 0)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name], **rows[name],
@@ -3124,7 +3570,8 @@ def main():
          "spec_launches": spec_counts[name],
          "zoo_launches": {part: c[name] for part, c in zoo_counts.items()},
          "cache_chat_launches": {part: c[name] for part, c in cc_counts.items()},
-         **({"phase1_launches": phase1[name]} if name in phase1 else {})}
+         "parallel_launches": {part: per_rank(c, name) for part, c in par_counts.items()},
+         **({"phase1_launches": phase1_counts[name]} if name in phase1_counts else {})}
         for name in KERNEL_INFO
     ]}))
     print(smi)

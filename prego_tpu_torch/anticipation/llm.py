@@ -30,6 +30,17 @@ a cache of converted weights for a Meta directory, written and read by
 prego_tpu/anticipation/llm.py:307-353, 404-423): with ``quantize="int8"``
 it holds the fused int8 serving tree, and later builds restore the int8
 tensors straight onto the device, with no conversion and no bf16 stage.
+
+Tensor parallelism (``tp``, the JAX adapter's, prego_tpu/anticipation/
+llm.py:297-307, 374-403): a checkpoint directory served by ranks of
+``torch.distributed`` (``python -m torch.distributed.run``) is split over
+``tp`` of them, by default the whole world in bf16 and 1 under
+``quantize`` (int8 on one card is the flagship layout). With ``tp`` > 1
+every rank serves its blocks of the UNfused tree (``parallel/``): the
+int8 leaves quantized from the unfused tree rather than restored from a
+fused int8 cache, a bf16 cache restored rank by rank. Every rank takes
+part in every call and gets the same completions. Fabricated shapes and
+``params=`` trees ignore ``tp``, as the JAX adapter's early return does.
 """
 
 from __future__ import annotations
@@ -198,11 +209,13 @@ def fabricated_config(shape: str, max_seq_len: int, max_batch_size: int, n_layer
 
 
 def load_checkpoint_dir(ckpt_dir: str, tokenizer, max_seq_len: int, max_batch_size: int,
-                        dtype, device, orbax_dir: Optional[str] = None, quantize=False):
+                        dtype, device, orbax_dir: Optional[str] = None, quantize=False,
+                        mesh=None):
     """(params, LlamaConfig) of a Meta directory (``params.json``, the
     vocabulary from the tokenizer) or an HF export (``config.json``), built
     on ``device`` (the JAX adapter's checkpoint branch,
-    prego_tpu/anticipation/llm.py:269-423, without tp).
+    prego_tpu/anticipation/llm.py:269-423). With a tensor-parallel
+    ``mesh`` (axis ``tp``), ``_load_sharded``.
 
     A Meta directory's tree comes back unfused in ``dtype`` without
     ``quantize``, and fused and quantized with it. ``orbax_dir`` (Meta
@@ -224,6 +237,9 @@ def load_checkpoint_dir(ckpt_dir: str, tokenizer, max_seq_len: int, max_batch_si
             f"ckpt_dir {ckpt_dir!r} does not exist (expected a Meta checkpoint dir with "
             "params.json or an HF export with config.json)")
     act_quant = quantize == "int8x8"
+    if mesh is not None:
+        return _load_sharded(ckpt_dir, tokenizer, max_seq_len, max_batch_size, dtype, device,
+                             orbax_dir, quantize, mesh)
     if osp.exists(osp.join(ckpt_dir, "params.json")):
         config = LlamaConfig.from_params_json(ckpt_dir, max_seq_len=max_seq_len,
                                               max_batch_size=max_batch_size,
@@ -248,16 +264,62 @@ def load_checkpoint_dir(ckpt_dir: str, tokenizer, max_seq_len: int, max_batch_si
                 # is structural, so that layout is not cached
                 params_io.save_llama_params(orbax_dir, params, config)
         return params, config
+    config = _hf_config(ckpt_dir, max_seq_len, max_batch_size)
+    return convert.convert_hf_checkpoint(ckpt_dir, config, dtype, device), config
+
+
+def _hf_config(ckpt_dir: str, max_seq_len: int, max_batch_size: int):
+    from prego_tpu_torch.models.llama.config import LlamaConfig
+
     with open(osp.join(ckpt_dir, "config.json")) as f:
         hf = json.load(f)
-    config = LlamaConfig(
+    return LlamaConfig(
         dim=hf["hidden_size"], n_layers=hf["num_hidden_layers"],
         n_heads=hf["num_attention_heads"], n_kv_heads=hf.get("num_key_value_heads"),
         vocab_size=hf["vocab_size"], norm_eps=hf.get("rms_norm_eps", 1e-5),
         rope_theta=hf.get("rope_theta", 10000.0), max_seq_len=max_seq_len,
         max_batch_size=max_batch_size,
     )
-    return convert.convert_hf_checkpoint(ckpt_dir, config, dtype, device), config
+
+
+def _load_sharded(ckpt_dir, tokenizer, max_seq_len, max_batch_size, dtype, device, orbax_dir,
+                  quantize, mesh):
+    """This rank's blocks of a checkpoint directory's unfused tree over the
+    ``tp`` axis of ``mesh``, and the config that serves them
+    (``llama_tp_config``). A Meta directory's bf16 cache in ``orbax_dir``
+    is restored block by block; without one, the tree is converted (and
+    cached by rank 0 unless ``quantize``). Under ``quantize`` the int8
+    leaves are quantized from the unfused tree, never restored from the
+    fused int8 cache (the JAX adapter converts fresh too)."""
+    import torch.distributed as dist
+
+    from prego_tpu_torch.checkpoint import convert, params_io
+    from prego_tpu_torch.models.llama import model
+    from prego_tpu_torch.models.llama.config import LlamaConfig
+    from prego_tpu_torch.parallel import llama_param_specs, llama_tp_config, shard_params
+
+    act_quant = quantize == "int8x8"
+    if osp.exists(osp.join(ckpt_dir, "params.json")):
+        config = LlamaConfig.from_params_json(ckpt_dir, max_seq_len=max_seq_len,
+                                              max_batch_size=max_batch_size,
+                                              vocab_size=tokenizer.n_words)
+        tp_config = llama_tp_config(config, mesh)  # raises before any read
+        if orbax_dir and osp.isdir(orbax_dir) and not quantize:
+            return params_io.load_llama_params(orbax_dir, config, device, dtype,
+                                               mesh=mesh), tp_config
+        params = convert.convert_meta_checkpoint(ckpt_dir, config, dtype, device)
+        if orbax_dir and not osp.isdir(orbax_dir) and not quantize:
+            if dist.get_rank() == 0:
+                params_io.save_llama_params(orbax_dir, params, config)
+            dist.barrier()
+    else:
+        config = _hf_config(ckpt_dir, max_seq_len, max_batch_size)
+        tp_config = llama_tp_config(config, mesh)
+        params = convert.convert_hf_checkpoint(ckpt_dir, config, dtype, device)
+    if quantize:
+        params = model.quantize_params(params, activations=act_quant)
+    specs = llama_param_specs(config, quantized=bool(quantize), activations=act_quant)
+    return shard_params(params, specs, mesh), tp_config
 
 
 @LLMS.register("torch-llama")
@@ -289,6 +351,8 @@ class TorchLlamaLLM:
         spec_draft: Optional[str] = None,  # "self-N" (the target's first N
         # layers, its own tensors), "fabricated-1b" / "fabricated-tiny"
         # (random weights: acceptance ~0), or a Meta checkpoint dir
+        tp: Optional[int] = None,  # tensor-parallel ranks for ckpt_dir: default the
+        # initialized world in bf16, 1 under quantize
     ):
         from prego_tpu_torch.models.llama import ByteTokenizer, Llama, load_tokenizer
         from prego_tpu_torch.models.llama.model import (
@@ -337,15 +401,23 @@ class TorchLlamaLLM:
             if not tokenizer_path:
                 raise ValueError("ckpt_dir= needs tokenizer_path= (a tokenizer file, or 'byte')")
             tokenizer = load_tokenizer(tokenizer_path)
+            from prego_tpu_torch.parallel.mesh import tp_mesh, world_size
+
+            if tp is None:
+                tp = 1 if quantize else world_size()
+            mesh = tp_mesh(tp) if tp > 1 else None
             # converted, fused and quantized on the serving device: the card
             # holds a 7B bf16 tree beside its int8 copy, and does the
             # transposes and the quantization far faster than the host
             params, config = load_checkpoint_dir(ckpt_dir, tokenizer, max_seq_len,
                                                  max_batch_size, dtype, device,
-                                                 orbax_dir=orbax_dir, quantize=quantize)
+                                                 orbax_dir=orbax_dir, quantize=quantize,
+                                                 mesh=mesh)
         else:
             tokenizer = load_tokenizer(tokenizer_path) if tokenizer_path else ByteTokenizer()
-        if params is not None:
+        if getattr(config, "tp_group", None) is not None:
+            pass  # this rank's blocks of the unfused tree, quantized where asked
+        elif params is not None:
             if config is None:
                 raise ValueError("params= needs config=")
             if "wqkv" not in params["layers"][0]["attention"]:

@@ -182,10 +182,11 @@ def safetensors_header(path: str) -> Tuple[int, Dict[str, Any]]:
     return 8 + n, header
 
 
-def load_safetensors(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+def load_safetensors(path: str, device="cpu", select=None) -> Dict[str, torch.Tensor]:
     """The tensors of a ``.safetensors`` file on ``device``: the file is
     mapped, and each tensor copied from the map straight into a tensor of
-    its stored dtype there."""
+    its stored dtype there. ``select(name, view)``, where given, picks the
+    part of each mapped tensor to copy (a rank's block of it)."""
     start, header = safetensors_header(path)
     out: Dict[str, torch.Tensor] = {}
     with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY) as buf:
@@ -198,9 +199,10 @@ def load_safetensors(path: str, device="cpu") -> Dict[str, torch.Tensor]:
                 out[name] = torch.empty(shape, dtype=dtype, device=device)
                 continue
             view = torch.frombuffer(buf, dtype=dtype, count=count, offset=start + begin)
+            part = view.reshape(shape) if select is None else select(name, view.reshape(shape))
             # copied out before the map closes
-            out[name] = view.reshape(shape).to(device, copy=True)
-            del view
+            out[name] = part.to(device, copy=True).contiguous()
+            del view, part
     return out
 
 

@@ -25,17 +25,21 @@ that differs. An int8 restore allocates each int8 and scale
 tensor once on the device and never makes a bf16 copy of a weight, on
 the host or the device (what ``orbax_io.load_llama_params(quantized=True)``
 is for: a 7B int8 tree restores in its ~6.7 GB). A directory that Orbax
-wrote is refused with a message, not misread. The tensor-parallel (mesh)
-restore of the JAX function is not ported here.
+wrote is refused with a message, not misread. With a ``mesh`` (a bf16 /
+f32 tree), each rank copies only its blocks of every tensor under
+``llama_param_specs`` from the map (the JAX function's sharded restore,
+without the whole tree on any device); an int8 tree is the one-card
+serving layout and is not restored onto a mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import os.path as osp
 import struct
-from dataclasses import asdict, replace
+from dataclasses import replace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -67,6 +71,19 @@ def flat_tensors(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
             out.update(flat_tensors(v, f"{prefix}{i}."))
         return out
     return {prefix[:-1]: tree}
+
+
+def flat_specs(specs, prefix: str = "") -> Dict[str, Any]:
+    """A PartitionSpec tree as path -> spec, in ``flat_tensors``' paths."""
+    from prego_tpu_torch.parallel.mesh import PartitionSpec
+
+    if isinstance(specs, PartitionSpec):
+        return {prefix[:-1]: specs}
+    items = specs.items() if isinstance(specs, dict) else enumerate(specs)
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flat_specs(v, f"{prefix}{k}."))
+    return out
 
 
 def _layout(params) -> Dict[str, bool]:
@@ -152,7 +169,9 @@ def save_llama_params(path: str, params: Dict[str, Any],
             f.write(memoryview(t.view(torch.uint8).cpu().numpy()))
     os.replace(tmp, osp.join(path, WEIGHTS))
     manifest = {"format": FORMAT, **_layout(params),
-                "config": asdict(config) if config is not None else None,
+                "config": ({f.name: getattr(config, f.name)
+                            for f in dataclasses.fields(LlamaConfig)}
+                           if config is not None else None),
                 "tensors": len(flat), "bytes": offset}
     with open(manifest_path, "w") as f:
         json.dump(manifest, f, indent=1)
@@ -204,6 +223,7 @@ def load_llama_params(
     quantized: bool = False,
     fused: Optional[bool] = None,
     activations: bool = False,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Restore a tree ``save_llama_params`` wrote onto ``device`` (the card
     by default; raises where there is none).
@@ -216,7 +236,13 @@ def load_llama_params(
     config where there is one; the vocabulary is the stored table's, as
     the converters take a checkpoint's table whatever its tokenizer's size
     (a byte tokenizer over a 32000-row table). Float leaves come out in
-    ``dtype``; ``q`` stays int8 and ``s`` f32."""
+    ``dtype``; ``q`` stays int8 and ``s`` f32. With ``mesh``
+    (``parallel.make_mesh``), this rank's blocks of the unfused float tree
+    under ``llama_param_specs``; ``quantized`` with a mesh raises."""
+    if quantized and mesh is not None:
+        raise ValueError(
+            "quantized restore is the single-card serving layout; restore the bf16 "
+            "tree onto the mesh and quantize each rank's blocks instead")
     device = resolve_device(device)
     if fused is None:
         fused = quantized
@@ -249,7 +275,13 @@ def load_llama_params(
         if not ok or tuple(info["shape"]) != shape:
             raise ValueError(f"{path}: {name} is {info['dtype']} {info['shape']}, "
                              f"expected a {kind} tensor of shape {list(shape)}")
-    out = load_safetensors(weights, device)
+    select = None
+    if mesh is not None:
+        from prego_tpu_torch.parallel.sharding import llama_param_specs, local_slice
+
+        specs = flat_specs(llama_param_specs(config, fused=fused))
+        select = lambda name, view: local_slice(view, specs[name], mesh)  # noqa: E731
+    out = load_safetensors(weights, device, select)
     for name, (_, kind) in want.items():
         if kind == "float" and out[name].dtype != dtype:
             out[name] = out[name].to(dtype)

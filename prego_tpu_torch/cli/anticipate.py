@@ -16,6 +16,14 @@ that CLI, which this one does not copy. Data assets
 maps) are resolved under --data_root, which can point directly at a
 reference-layout step_anticipation/data directory.
 
+Under ``python -m torch.distributed.run --nproc_per_node N -m
+prego_tpu_torch.cli.anticipate ...`` the N ranks join one process group
+(NCCL on the card, gloo on the CPU), each on its own device
+(``cuda:LOCAL_RANK``); torch-llama over a checkpoint directory splits the
+model over the ranks in bf16 (tensor parallelism; one card a rank under
+--quantize, as the JAX adapter; see ``anticipation/llm.py``), every rank
+takes part in every generation, and only rank 0 writes the results.
+
 Examples:
   python -m prego_tpu_torch.cli.anticipate --llm fake --dataset assembly \
       --data_root /path/to/step_anticipation/data --num_samples 2
@@ -33,6 +41,9 @@ Examples:
   python -m prego_tpu_torch.cli.anticipate --llm hf --model_name <local HF dir> \
       --dataset synthcustom --seqs aggregated.json --cleaning_mode hf
   python -m prego_tpu_torch.cli.anticipate --llm ollama --model_name llama3.2:1b \
+      --dataset synthcustom --seqs aggregated.json
+  python -m torch.distributed.run --nproc_per_node 2 -m prego_tpu_torch.cli.anticipate \
+      --llm torch-llama --ckpt_dir llama-2-7b --tokenizer_path tokenizer.model \
       --dataset synthcustom --seqs aggregated.json
 """
 
@@ -230,11 +241,19 @@ def run(args: argparse.Namespace, llm=None):
     """Anticipate every sequence, report the metrics and save the results;
     ``llm`` defaults to the one the flags select, built after the flags
     are validated and the data is loaded."""
+    from prego_tpu_torch.parallel.mesh import init_distributed, is_rank0
+
     logger = get_logger()
     kwargs = llm_kwargs(args) if llm is None else None
+    _, world = init_distributed(args.device)  # a launcher's ranks
+    if world > 1 and args.checkpoint_path:
+        raise SystemExit("--checkpoint_path is not supported under torch.distributed.run: "
+                         "every rank would resume from and write to the same file")
     seqs, contexts, toy2class, idx2action, idx2emoji = load_assets(args)
     if llm is None:
         llm = build_llm(args.llm, **kwargs)
+    if hasattr(llm, "llama"):
+        logger.info(f"torch-llama over {llm.llama.config.tp_size} tensor-parallel rank(s)")
 
     result = run_anticipation(
         seqs,
@@ -296,12 +315,13 @@ def run(args: argparse.Namespace, llm=None):
         if args.model_name
         else (osp.basename(args.ckpt_dir or "").split("-")[-1] or args.llm)
     )
-    out_dir = save_results(
-        result, args.results_root, model_id, args.use_gt, args.type_prompt,
-        args.clean_prediction, args.num_samples, args.temperature,
-        args.dataset, args.prompt_context, prefix=args.llm.replace("-", "_"),
-    )
-    logger.info(f"results saved to {out_dir}")
+    if is_rank0():  # the ranks hold the same results: one writes them
+        out_dir = save_results(
+            result, args.results_root, model_id, args.use_gt, args.type_prompt,
+            args.clean_prediction, args.num_samples, args.temperature,
+            args.dataset, args.prompt_context, prefix=args.llm.replace("-", "_"),
+        )
+        logger.info(f"results saved to {out_dir}")
     return result
 
 

@@ -11,7 +11,9 @@ does not exist, SURVEY.md §7 quirk table). Here:
 
 This is the port of prego_tpu/cli/pipeline.py, with the same flags plus
 --fabricated and --orbax_dir (passed on to anticipate) and --device. --llm
-hf and --llm ollama take --model_name, as anticipate does.
+hf and --llm ollama take --model_name, as anticipate does. Under
+``python -m torch.distributed.run`` rank 0 runs recognition and
+aggregation, and every rank anticipates (see cli/anticipate.py).
 
 Use --skip_recognition with --seqs to start from existing per-frame or
 aggregated predictions.
@@ -68,10 +70,12 @@ def main(argv: Optional[List[str]] = None):
                    help="cuda | cpu (default cuda; raises where there is no card)")
     args = p.parse_args(argv)
 
-    logger = get_logger()
-    os.makedirs(args.workdir, exist_ok=True)
+    import torch.distributed as dist
 
-    # 1. recognition eval -> per-frame predictions
+    from prego_tpu_torch.parallel.mesh import init_distributed, is_rank0
+
+    logger = get_logger()
+    _, world = init_distributed(args.device)  # a launcher's ranks
     if args.skip_recognition:
         if not args.seqs:
             raise SystemExit("--skip_recognition requires --seqs")
@@ -79,27 +83,31 @@ def main(argv: Optional[List[str]] = None):
     else:
         if not (args.config and args.ckpt):
             raise SystemExit("recognition stage requires --config and --ckpt")
-        from prego_tpu_torch.cli.train import main as train_main
-
         raw_path = osp.join(args.workdir, "perframe_predictions.json")
-        train_main(
-            [
-                "--config", args.config,
-                "--eval", args.ckpt,
-                "--eval_output_dir", osp.dirname(raw_path),
-                "--eval_output_name", osp.basename(raw_path),
-                "--device", args.device,
-            ]
-        )
-        logger.info(f"[pipeline] recognition predictions -> {raw_path}")
+    agg_path = raw_path if args.already_aggregated else osp.join(args.workdir, "aggregated.json")
 
-    # 2. aggregation (TI-PREGO consensus)
-    if args.already_aggregated:
-        agg_path = raw_path
-    else:
-        agg_path = osp.join(args.workdir, "aggregated.json")
-        aggregate_predictions(raw_path, agg_path)
-        logger.info(f"[pipeline] aggregated step sequences -> {agg_path}")
+    if is_rank0():  # under ranks, rank 0 alone runs stages 1 and 2
+        os.makedirs(args.workdir, exist_ok=True)
+        # 1. recognition eval -> per-frame predictions
+        if not args.skip_recognition:
+            from prego_tpu_torch.cli.train import main as train_main
+
+            train_main(
+                [
+                    "--config", args.config,
+                    "--eval", args.ckpt,
+                    "--eval_output_dir", osp.dirname(raw_path),
+                    "--eval_output_name", osp.basename(raw_path),
+                    "--device", args.device,
+                ]
+            )
+            logger.info(f"[pipeline] recognition predictions -> {raw_path}")
+        # 2. aggregation (TI-PREGO consensus)
+        if not args.already_aggregated:
+            aggregate_predictions(raw_path, agg_path)
+            logger.info(f"[pipeline] aggregated step sequences -> {agg_path}")
+    if world > 1:
+        dist.barrier()  # the aggregated sequences are written
 
     # 3. anticipation + mistake detection
     from prego_tpu_torch.cli.anticipate import main as anticipate_main

@@ -10,8 +10,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os.path as osp
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 
 @dataclass(frozen=True)  # hashable: usable as a dict key
@@ -33,8 +33,22 @@ class LlamaConfig:
     # gate (flash/bounded decode attention, fused dense/FFN) stays off
     # and the equivalent jnp paths run — those partition cleanly with
     # collectives over ICI (SURVEY.md §2.4). Single-chip serving keeps
-    # the kernels.
+    # the kernels. In the port it marks a rank that serves its shards of
+    # the unfused tree (parallel/sharding.py::llama_tp_config): the fused
+    # kernels stay off, the kernels that compute the same function on a
+    # shard (K2, K3, K4, K5) stay on.
     tp_serving: bool = False
+
+    @property
+    def tp_size(self) -> int:
+        """Ranks the heads, the FFN and the vocabulary are split over (1 but
+        for a ``TensorParallelConfig``)."""
+        group = getattr(self, "tp_group", None)
+        if group is None:
+            return 1
+        import torch.distributed as dist
+
+        return dist.get_world_size(group)
 
     @property
     def kv_heads(self) -> int:
@@ -60,6 +74,16 @@ class LlamaConfig:
         params = {k: v for k, v in params.items() if k in known}
         params.update(overrides)
         return cls(**params)
+
+
+@dataclass(frozen=True)
+class TensorParallelConfig(LlamaConfig):
+    """The config of a rank that serves its blocks of the tree under tensor
+    parallelism (``parallel/sharding.py::llama_tp_config``): ``tp_group``
+    is its process group (torch.distributed), which is not part of the
+    config's identity. ``dataclasses.replace`` keeps it."""
+
+    tp_group: Any = field(default=None, compare=False, repr=False)
 
 
 def tiny_test_config(vocab_size: int = 256) -> LlamaConfig:

@@ -76,6 +76,23 @@ weights take the unfused sequence (K7a is bf16 only) unless
 stores K and V as ``{"q": int8 (B, KV, T, hd), "s": f32 (B, KV, T)}``,
 one symmetric scale per position and head; decode reads it with K3 and
 prefill dequantizes it for the masked einsum.
+
+Tensor parallelism (a ``TensorParallelConfig``'s ``tp_group``, from
+``parallel/sharding.py::llama_tp_config``): a rank holds its blocks of the
+unfused tree and its kv heads of every cache, and runs the same code on
+them with the collectives over the tp group (the fairscale layout, which
+the JAX package leaves to XLA's partitioner): the embedding's dim blocks
+are all-gathered, the partial products of the row-parallel wo and w2 are
+all-reduced in f32 before the cast and the residual add (an int8 x int8
+leaf's per-token amax all-reduced (max) before quantizing), and the
+logits all-gathered over the vocabulary; a dim the tp size does not
+divide stays whole and takes no collective. The fused kernels stay off,
+as every kernel does under the JAX package's ``tp_serving`` (K7a, K7,
+K7q, K8, K8u and K9 put the norm or the residual inside a row-parallel
+product); the kernels that compute the same function on a shard run:
+K2, or K3 over an int8 cache, on the rank's kv heads, and K4 and K5 on
+its slices. Every rank gets the same logits, so the same sampler seed
+draws the same tokens on every rank.
 """
 
 from __future__ import annotations
@@ -84,6 +101,7 @@ import os
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from prego_tpu_torch.models.llama.config import LlamaConfig
 from prego_tpu_torch.ops.decode_attention import decode_attention
@@ -155,6 +173,10 @@ def fusion_gates() -> FusionGates:
     return FusionGates(_fused_ffn_supported(), _fused_attn_wo_supported(),
                        _fused_layer_supported(), _fused_cache_upd_supported(),
                        _fused_dense_q8_supported(), _fused_ffn_q8_supported())
+
+
+# under tensor parallelism: the unfused sequence everywhere
+TP_GATES = FusionGates(False, False, False, False, False, False)
 
 
 def is_quantized(leaf) -> bool:
@@ -329,8 +351,10 @@ def init_cache(
     """Per-layer head-major (B, KV, T, hd) K and V tensors, T = max_seq_len
     + ``spare`` (speculative decoding's spare tail); ``quantized``:
     {"q": (B, KV, T, hd) int8, "s": (B, KV, T) f32} leaves instead, half
-    the cache bytes of bf16."""
-    shape = (batch, config.kv_heads, config.max_seq_len + spare, config.head_dim)
+    the cache bytes of bf16. Under tensor parallelism, this rank's kv
+    heads only."""
+    shape = (batch, config.kv_heads // config.tp_size, config.max_seq_len + spare,
+             config.head_dim)
 
     def leaf():
         if quantized:
@@ -364,20 +388,47 @@ def _kv_dequant(leaf: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
     return (leaf["q"].float() * leaf["s"][..., None]).to(dtype)
 
 
-def _dense(x: torch.Tensor, leaf) -> torch.Tensor:
+def _rows(leaf) -> int:
+    """K of a (K, N) projection leaf, plain or int8."""
+    return (leaf["q"] if is_quantized(leaf) else leaf).shape[0]
+
+
+def _cols(leaf) -> int:
+    """N of a (K, N) projection leaf, plain or int8."""
+    return (leaf["q"] if is_quantized(leaf) else leaf).shape[1]
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``dim``, concatenated in rank order."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _dense(x: torch.Tensor, leaf, group=None) -> torch.Tensor:
     """x (..., K) times a projection leaf, f32 out: a plain tensor through
     ``mm_f32``, an int8 leaf through K4, an int8 leaf marked ``act``
-    through ``quantize_activations`` and K5."""
+    through ``quantize_activations`` and K5. ``group``: the tp group a
+    row-parallel leaf's K is split over; the f32 partial products are
+    summed there, and an ``act`` leaf's per-token amax is the group's max."""
     if not is_quantized(leaf):
-        return mm_f32(x, leaf)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if "act" in leaf:
-        xq, xs = quantize_activations(x2)
-        y = int8xint8_matmul(xq, xs, leaf["q"], leaf["s"])
+        y = mm_f32(x, leaf)
     else:
-        y = int8_matmul(x2, leaf["q"], leaf["s"])
-    return y.reshape(*lead, y.shape[-1])
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        if "act" in leaf:
+            amax = None
+            if group is not None:
+                amax = x2.float().abs().amax(dim=-1, keepdim=True)
+                dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+            xq, xs = quantize_activations(x2, amax)
+            y = int8xint8_matmul(xq, xs, leaf["q"], leaf["s"])
+        else:
+            y = int8_matmul(x2, leaf["q"], leaf["s"])
+        y = y.reshape(*lead, y.shape[-1])
+    if group is not None:
+        dist.all_reduce(y, group=group)
+    return y
 
 
 # ---- building blocks ----
@@ -405,6 +456,38 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.reshape(B, S, H, hd).to(x.dtype)
 
 
+def _project_qkv(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) times wqkv, or wq | wk | wv, in x's dtype."""
+    if "wqkv" in p:
+        return _dense(x, p["wqkv"]).to(x.dtype)
+    return torch.cat([_dense(x, p[w]).to(x.dtype) for w in ("wq", "wk", "wv")], dim=-1)
+
+
+def _split_heads(xqkv: torch.Tensor, H: int, KV: int, hd: int, cos, sin):
+    """(q (B, S, KV, H / KV, hd), the new K and V (B, KV, S, hd)) of a
+    projection (B, S, (H + 2 KV) hd), the rope applied to q and K."""
+    B, S = xqkv.shape[:2]
+    # q and k heads rotate together: one rope pass over H + KV heads
+    qk = apply_rope(xqkv[..., : (H + KV) * hd].reshape(B, S, H + KV, hd), cos, sin)
+    xq, xk = qk[:, :, :H], qk[:, :, H:]
+    xv = xqkv[..., (H + KV) * hd :].reshape(B, S, KV, hd)
+    return xq.reshape(B, S, KV, H // KV, hd), xk.transpose(1, 2), xv.transpose(1, 2)
+
+
+def _masked_attention(q: torch.Tensor, k_full: torch.Tensor, v_full: torch.Tensor,
+                      mask: torch.Tensor, dt) -> torch.Tensor:
+    """GQA of q (B, S, KV, R, hd) against whole (B, KV, T, hd) K and V under
+    ``mask`` (model.py:612-636): f32 scores, softmax, the product with V.
+    (B, S, KV R hd) in ``dt``."""
+    B, S, KV, R, hd = q.shape
+    qh = q.permute(0, 2, 3, 1, 4)  # (B, KV, R, S, hd)
+    scores = bmm_f32(qh, k_full[:, :, None].transpose(-1, -2)) / (hd ** 0.5)
+    scores = torch.where(mask, scores, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = bmm_f32(probs, v_full[:, :, None]).to(dt)  # (B, KV, R, S, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, KV * R * hd)
+
+
 def _attention(
     p: Params,
     h: torch.Tensor,  # (B, S, D) pre-norm residual stream
@@ -421,9 +504,11 @@ def _attention(
     gates: FusionGates,
 ) -> torch.Tensor:
     """Returns h + attention(rms_norm(h)), writing this step's K/V into
-    the cache at ``where``."""
+    the cache at ``where``. Under tensor parallelism, over this rank's
+    heads, with wo's partial products summed over the tp group."""
     B, S, D = h.shape
-    H, KV, hd = config.n_heads, config.kv_heads, config.head_dim
+    tp = config.tp_size
+    H, KV, hd = config.n_heads // tp, config.kv_heads // tp, config.head_dim
     dense_q8 = S == 1 and gates.dense_q8  # K9's decode sites
     if dense_q8 and _weight_only_q8(p.get("wqkv")):
         # the norm inside the int8 qkv projection
@@ -434,20 +519,12 @@ def _attention(
     else:
         x = rms_norm(h, norm_weight, config.norm_eps)
         dt = x.dtype
-        if "wqkv" in p:
-            xqkv = _dense(x, p["wqkv"]).to(dt)
-        else:
-            xqkv = torch.cat([_dense(x, p[w]).to(dt) for w in ("wq", "wk", "wv")], dim=-1)
-    # q and k heads rotate together: one rope pass over H + KV heads
-    qk = apply_rope(xqkv[..., : (H + KV) * hd].reshape(B, S, H + KV, hd), cos, sin)
-    xq, xk = qk[:, :, :H], qk[:, :, H:]
-    xv = xqkv[..., (H + KV) * hd :].reshape(B, S, KV, hd)
+        xqkv = _project_qkv(p, x)
+    q, k_new, v_new = _split_heads(xqkv, H, KV, hd, cos, sin)
 
     kv_quant = isinstance(cache_k, dict)
     per_row = isinstance(where, torch.Tensor)
     wo = p["wo"]
-    q = xq.reshape(B, S, KV, H // KV, hd)
-    k_new, v_new = xk.transpose(1, 2), xv.transpose(1, 2)  # (B, KV, S, hd)
     # K8 and K8u: a bf16 wo small enough, over a bf16 cache; the JAX
     # package keeps them to scalar positions (model.py:488, 580)
     fuse_wo = (S == 1 and not kv_quant and not per_row and not is_quantized(wo)
@@ -494,13 +571,26 @@ def _attention(
         # an int8 cache is dequantized for it
         k_full = _kv_dequant(cache_k, dt) if kv_quant else cache_k
         v_full = _kv_dequant(cache_v, dt) if kv_quant else cache_v
-        qh = q.permute(0, 2, 3, 1, 4)  # (B, KV, R, S, hd)
-        scores = bmm_f32(qh, k_full[:, :, None].transpose(-1, -2)) / (hd ** 0.5)
-        scores = torch.where(mask, scores, float("-inf"))
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = bmm_f32(probs, v_full[:, :, None]).to(dt)  # (B, KV, R, S, hd)
-        out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-    return h + _dense(out, wo).to(dt)
+        out = _masked_attention(q, k_full, v_full, mask, dt)
+    return h + _dense(out, wo, _row_group(wo, config.n_heads * hd, config)).to(dt)
+
+
+def _split(n_local: int, n_whole: int, config: LlamaConfig) -> bool:
+    """Whether a dim of ``n_whole`` is split over the tp group, ``n_local``
+    its block here (a dim the tp size does not divide stays whole; over
+    one rank the block is the whole, and the collectives still run)."""
+    return _tp_group(config) is not None and n_local * config.tp_size == n_whole
+
+
+def _tp_group(config: LlamaConfig):
+    """The tp process group of a ``TensorParallelConfig``, else None."""
+    return getattr(config, "tp_group", None)
+
+
+def _row_group(leaf, k_whole: int, config: LlamaConfig):
+    """The tp group where a row-parallel leaf holds a block of its ``k_whole``
+    rows, else None."""
+    return _tp_group(config) if _split(_rows(leaf), k_whole, config) else None
 
 
 def _cache_index(start_pos, B: int, S: int, KV: int, T: int, device):
@@ -526,9 +616,10 @@ def _cache_index(start_pos, B: int, S: int, KV: int, T: int, device):
     return where, k_pos <= start_pos + steps[:, None]
 
 
-def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates) -> torch.Tensor:
+def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates, group=None) -> torch.Tensor:
     """silu(x.w1) * (x.w3) cast to x's dtype, then .w2, in x's dtype.
-    Decode rows with bf16 weights in the fused layout run the K7 wrapper."""
+    Decode rows with bf16 weights in the fused layout run the K7 wrapper.
+    ``group``: the tp group w2's rows are split over."""
     if "w13" in p:
         if not is_quantized(p["w13"]) and x.shape[1] == 1 and gates.ffn:
             B, S, D = x.shape
@@ -539,7 +630,7 @@ def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates) -> torch.Tenso
     else:
         gate, up = _dense(x, p["w1"]), _dense(x, p["w3"])
     act = (torch.nn.functional.silu(gate) * up).to(x.dtype)
-    return _dense(act, p["w2"]).to(x.dtype)
+    return _dense(act, p["w2"], group).to(x.dtype)
 
 
 def _ffn_sublayer(
@@ -560,7 +651,8 @@ def _ffn_sublayer(
         w13, w2 = p["w13"], p["w2"]
         return fused_ffn_block_q8(h.reshape(B, D), nw, w13["q"], w13["s"], w2["q"], w2["s"],
                                   config.norm_eps).reshape(B, 1, D)
-    return h + _feed_forward(p, rms_norm(h, nw, config.norm_eps), gates)
+    group = _row_group(p["w2"], config.ffn_hidden, config)
+    return h + _feed_forward(p, rms_norm(h, nw, config.norm_eps), gates, group)
 
 
 def forward(
@@ -581,7 +673,11 @@ def forward(
     is written per row by index, decode attention is bounded per row and
     the masked path masks per row, all on the device (no host read). K8
     and K8u are skipped per row, as in the JAX package; with every entry
-    equal the result is the scalar path's, bit for bit."""
+    equal the result is the scalar path's, bit for bit.
+
+    Under tensor parallelism (a ``TensorParallelConfig``) ``params`` are this
+    rank's blocks and ``cache`` its kv heads; the logits come back whole
+    on every rank."""
     if rope is None:
         rope = precompute_rope(config, device=tokens.device)
     cos_full, sin_full = rope
@@ -600,10 +696,16 @@ def forward(
     V = emb.shape[0]
     # negative ids (the -1 pad) wrap like jnp.take's index normalisation
     h = emb[torch.where(tokens < 0, tokens + V, tokens)]
-    gates = fusion_gates()  # once per call, not per layer
+    tp = _tp_group(config)
+    if _split(emb.shape[1], config.dim, config):  # ParallelEmbedding's dim blocks
+        h = _all_gather(h, -1, tp)
+    gates = fusion_gates() if tp is None else TP_GATES  # once per call, not per layer
+    if tp is not None and params["layers"] and "wqkv" in params["layers"][0]["attention"]:
+        raise ValueError("tensor-parallel serving takes the unfused layout (wq/wk/wv, "
+                         "w1/w3): a block of wqkv or w13 cuts across its q|k|v or gate|up parts")
     leaf = cache["k"][0]
-    T = (leaf["q"] if isinstance(leaf, dict) else leaf).shape[2]
-    where, mask = _cache_index(start_pos, B, S, config.kv_heads, T, tokens.device)
+    KV, T = (leaf["q"] if isinstance(leaf, dict) else leaf).shape[1:3]
+    where, mask = _cache_index(start_pos, B, S, KV, T, tokens.device)
     valid = pos = None
     if S == 1 and per_row:  # K8u is skipped per row: no pos
         valid = (start_pos + 1).to(torch.int32)
@@ -625,4 +727,7 @@ def forward(
                                 norm_weight=params["norm"], eps=config.norm_eps)
         return logits.reshape(B, S, -1), cache
     h = rms_norm(h, params["norm"], config.norm_eps)
-    return _dense(h, out_w), cache
+    logits = _dense(h, out_w)
+    if _split(_cols(out_w), V, config):  # the vocabulary's blocks
+        logits = _all_gather(logits, -1, tp)
+    return logits, cache

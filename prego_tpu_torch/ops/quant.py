@@ -18,7 +18,7 @@ counterpart here: the kernel picks its own tiles.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,8 +49,10 @@ GEMV_TILE_N = 128  # output columns of a streaming block (csrc/w8_matmul.cuh kTi
 W8A8_WORKSPACE = Workspace(torch.int32, zero=True)
 
 
-def _quantize(xf: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    amax = xf.abs().amax(dim=dim, keepdim=True)
+def _quantize(xf: torch.Tensor, dim: int, amax: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if amax is None:
+        amax = xf.abs().amax(dim=dim, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -61,9 +63,12 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _quantize(w.float(), 0)
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic per-row symmetric int8. x: (M, K) -> (xq, scale (M, 1))."""
-    return _quantize(x.float(), -1)
+def quantize_activations(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row symmetric int8. x: (M, K) -> (xq, scale (M, 1));
+    ``amax`` (M, 1) in place of x's own per-row max |x| (a row split over
+    ranks takes the max over all of them)."""
+    return _quantize(x.float(), -1, amax)
 
 
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,15 @@ copied, so that the sampler's ring can reuse the buffers once the copies
 have run. A numpy batch is copied as before (pageable, so the copy waits
 for the host and for the stream).
 
+Data parallelism (``make_train_step(mesh=)``, the JAX package's
+``mesh`` argument): every rank holds the same parameters and optimizer
+state, takes its block of the batch along the mesh's ``dp`` axis and runs
+the step on it (K1 and K6 per rank on the card). The masked mean of the
+loss is the global one: each rank's masked sum is divided by the valid
+count summed over the ranks (a mean of per-rank means is wrong when the
+counts differ), the gradients are all-reduced (summed), and the same
+optimizer update follows on every rank; the step returns the global loss.
+
 Nothing here falls back: a kernel that fails to build or to launch
 raises out of the step.
 """
@@ -28,6 +37,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from prego_tpu_torch.checkpoint.io import tree_leaves
 from prego_tpu_torch.core.registry import TRAINERS
@@ -52,8 +62,19 @@ def update_count(optimizer: torch.optim.Optimizer) -> int:
     return int(state["step"]) if state else 0
 
 
-def _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule, loss_of):
+def _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule, loss_of,
+               mesh=None):
+    dp = n_dp = None
+    if mesh is not None:
+        dp, n_dp, i_dp = mesh.group("dp"), mesh.shape["dp"], mesh.index("dp")
+
     def step(params, rgb, flow, target, valid, generator) -> torch.Tensor:
+        if dp is not None:  # this rank's block of the batch
+            if rgb.shape[0] % n_dp:
+                raise ValueError(f"batch of {rgb.shape[0]} does not split over dp {n_dp}")
+            b = rgb.shape[0] // n_dp
+            rgb, target, valid = (x[i_dp * b:(i_dp + 1) * b] for x in (rgb, target, valid))
+            flow = None if flow is None else flow[i_dp * b:(i_dp + 1) * b]
         if bf16:
             rgb = rgb.to(torch.bfloat16)
             flow = None if flow is None else flow.to(torch.bfloat16)
@@ -66,7 +87,21 @@ def _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule, loss
             params, rgb, flow, generator, flow_is_zero=flow_is_zero, backend=gru_backend
         )
         loss = loss_of(out, target, valid)
+        if dp is not None:
+            # the local masked mean times count / global count: this rank's
+            # share of the global masked mean
+            count = valid.sum()
+            total = count.detach().clone()
+            dist.all_reduce(total, group=dp)
+            loss = loss * torch.clamp(count, min=1.0) / torch.clamp(total, min=1.0)
         loss.backward()
+        if dp is not None:
+            for g in optimizer.param_groups:
+                for p in g["params"]:
+                    if p.grad is not None:
+                        dist.all_reduce(p.grad, group=dp)
+            loss = loss.detach()
+            dist.all_reduce(loss, group=dp)
         optimizer.step()
         return loss.detach()
 
@@ -76,13 +111,16 @@ def _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule, loss
 def make_train_step(
     model, optimizer: torch.optim.Optimizer, flow_is_zero: bool,
     bf16: bool = False, gru_backend: str = "scan",
-    schedule: Optional[Callable[[int], float]] = None,
+    schedule: Optional[Callable[[int], float]] = None, mesh=None,
 ) -> Callable[..., torch.Tensor]:
     """The train step: (params, rgb, flow, target_last, valid, generator)
     -> loss. Forward, masked loss, backward, and one optimizer update with
-    the scheduled lr; params are updated in place."""
+    the scheduled lr; params are updated in place. With a ``mesh``
+    (``parallel.make_mesh`` with a ``dp`` axis), the batch given is the
+    global one and each rank steps on its block of it (see above)."""
     return _make_step(model, optimizer, flow_is_zero, bf16, gru_backend, schedule,
-                      lambda logits, target, valid: last_frame_mlce(logits.float(), target, valid))
+                      lambda logits, target, valid: last_frame_mlce(logits.float(), target, valid),
+                      mesh)
 
 
 def make_ant_train_step(

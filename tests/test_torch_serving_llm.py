@@ -46,6 +46,17 @@ COUNTERS = ("decode_steps", "slot_steps_live", "slot_steps_total", "prefills", "
             "prefix_tokens_reused", "suffix_tokens_prefilled", "suffix_tokens_piggybacked")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these tiny models: under pytest-xdist each
+    worker otherwise starts a thread per core, and the oversubscribed
+    threads cost far more than they save at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(**kw):
     base = dict(dim=64, n_layers=2, n_heads=4, n_kv_heads=4, vocab_size=258, multiple_of=32,
                 norm_eps=1e-5, max_batch_size=4, max_seq_len=128)

@@ -82,7 +82,17 @@ CHECK = True  # hold K7q's, K7's, K1's and K6's cases to their plain versions (-
 
 
 def load_smoke():
-    """chip_smoke.py's helpers, from this checkout whatever DIR is."""
+    """chip_smoke.py's helpers, from this checkout whatever DIR is. It
+    imports the device-time helpers of prego_tpu_torch/core/profiling.py:
+    where DIR's package predates that module, this checkout's is used."""
+    import prego_tpu_torch.core
+
+    name = "prego_tpu_torch.core.profiling"
+    if importlib.util.find_spec(name) is None:
+        spec = importlib.util.spec_from_file_location(
+            name, REPO / "prego_tpu_torch" / "core" / "profiling.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
     spec = importlib.util.spec_from_file_location("chip_smoke_helpers", REPO / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -207,7 +217,7 @@ def k5_cluster_kernel():
     return run
 
 
-def device_ms_by_kernel(fn, arg_sets, iters=20):
+def device_ms_by_kernel(sm, fn, arg_sets, iters=20):
     """Each kernel's own device time a call of ``fn`` over ``arg_sets`` in
     turn, by kernel name, from one torch.profiler session."""
     fn(*arg_sets[0])
@@ -218,11 +228,8 @@ def device_ms_by_kernel(fn, arg_sets, iters=20):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
     spans = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name[:80]
-            span = (e.time_range.end - e.time_range.start) / 1e3 / iters
-            spans[name] = spans.get(name, 0.0) + span
+    for name, start, end in sm.device_spans(prof):
+        spans[name[:80]] = spans.get(name[:80], 0.0) + (end - start) / 1e3 / iters
     return spans
 
 
@@ -256,7 +263,7 @@ def k3_cases(sm, dev):
         yield dict(kernel="K3", shape=f"B 8 KV {KV} R {R} T 512", max_abs_err=err,
                    ms=sm.time_ms_cycle(k3, sets, 50),
                    device_ms=sm.device_ms_cycle(k3, sets, what="K3"),
-                   device_by_kernel=device_ms_by_kernel(k3, sets),
+                   device_by_kernel=device_ms_by_kernel(sm, k3, sets),
                    k2_bf16_ms=sm.time_ms_cycle(k2, deq, 50),
                    k2_bf16_device_ms=sm.device_ms_cycle(k2, deq, what="K2 on the bf16 cache"),
                    library_ms=sm.time_ms_cycle(lib, deq, 50),
@@ -276,7 +283,7 @@ def timed(sm, name, fn, sets, iters, unfused=None):
     where given, the unfused sequence's host clock and device time."""
     case = dict(ms=sm.time_ms_cycle(fn, sets, iters),
                 device_ms=sm.device_ms_cycle(fn, sets, what=name),
-                device_by_kernel=device_ms_by_kernel(fn, sets))
+                device_by_kernel=device_ms_by_kernel(sm, fn, sets))
     if unfused is not None:
         case.update(unfused_ms=sm.time_ms_cycle(unfused, sets, iters),
                     unfused_device_ms=sm.device_ms_cycle(unfused, sets, what=f"{name} unfused"))
