@@ -92,10 +92,9 @@
    (k) Parallelism and profiling (prego_tpu_torch/parallel, core/profiling.py),
    after phase 4: (k4) ``trace`` around four 7B bf16 decode steps, each in
    ``annotate("decode_step")``, the trace file holding the annotation and
-   K2's and K7a's kernels, a ``ThroughputMeter`` that synchronizes the
-   card; then ranks as processes on this one card (``parallel.run_ranks``):
-   (k1) the 7B bf16 tree drawn layer by layer, each rank keeping its
-   blocks, greedy tokens of the loop's first 8 prompts over tp 1 (NCCL) and
+   K2's and K7a's kernels; then ranks as processes on this one card
+   (``parallel.run_ranks``): (k1) the 7B bf16 tree drawn layer by layer,
+   each rank keeping its blocks, greedy tokens of the loop's first 8 prompts over tp 1 (NCCL) and
    tp 2 (gloo: NCCL refuses two ranks on one card), equal up to a
    near-tie, K2 on each rank and none of K7a/K7/K7q/K8/K8u/K9, the step's
    collectives alone at B 8; torch-llama int8 over (h)'s checkpoint split
@@ -1751,24 +1750,6 @@ def check_launched(phase, counts, must, must_not=FUSED_WO):
         raise AssertionError(f"{phase}: kernels not launched {missing}, launched per row {extra}")
 
 
-def summed_stats(cb):
-    """Wrap ``cb.serve`` so that its ServeStats add up over calls."""
-    from dataclasses import fields
-
-    from prego_tpu_torch.serving_llm import ServeStats
-
-    total, serve = ServeStats(), cb.serve
-
-    def wrapped(*args, **kwargs):
-        done, st = serve(*args, **kwargs)
-        for f in fields(ServeStats):
-            setattr(total, f.name, getattr(total, f.name) + getattr(st, f.name))
-        return done, st
-
-    cb.serve = wrapped
-    return total
-
-
 def stats_dict(st):
     from dataclasses import asdict
 
@@ -1828,7 +1809,7 @@ def run_serving(dev, llms, llm_1b, cfg, report, raw):
     # main path's weights (no second draw), over every aggregated sequence
     lm = llms["bf16"].llama
     cb_llm = TorchLlamaLLM(params=lm.params, config=lm.config, device=dev, serving="cb")
-    cb_stats = summed_stats(cb_llm._batcher())
+    cb_stats = cb_llm._batcher().stats  # ServeStats summed over its serve_prompts calls
     cb_args = anticipate.parse_args([*anticipate_flags(dev, WORK / "pipeline" / "aggregated.json"),
                                      "--serving", "cb"])
     sent, complete = [], cb_llm.text_completion
@@ -3252,10 +3233,9 @@ def run_parallel(dev, sent, ckpt):
 def run_profiling(dev, lm):
     """(k4) core/profiling.py on the card: ``trace`` around four 7B bf16
     decode steps (B 1, at position 128), each inside ``annotate
-    ("decode_step")``, timed by a ``ThroughputMeter`` that synchronizes the
-    card; the trace file must hold the annotation and K2's and K7a's
-    kernels."""
-    from prego_tpu_torch.core.profiling import ThroughputMeter, annotate, trace
+    ("decode_step")``; the trace file must hold the annotation and K2's and
+    K7a's kernels."""
+    from prego_tpu_torch.core.profiling import annotate, trace
     from prego_tpu_torch.models.llama.model import forward, init_cache
 
     cache = init_cache(lm.config, 1, lm.dtype, dev)
@@ -3266,15 +3246,12 @@ def run_profiling(dev, lm):
     if logdir.exists():
         for f in logdir.iterdir():
             f.unlink()
-    meter = ThroughputMeter(warmup=1, sync=torch.cuda.synchronize)
 
     def traced():
         with trace(str(logdir)) as prof:
             for i in range(4):
-                meter.start()
                 with annotate("decode_step"):
                     forward(lm.params, nxt, 128 + i, cache, lm.config, lm.rope)
-                meter.stop(1)
         return prof
 
     prof, counts, _ = count_launches(traced)
@@ -3285,8 +3262,7 @@ def run_profiling(dev, lm):
              "K2 decode_cluster_kernel": any("decode_cluster_kernel" in n for n in names),
              "K7a ffn_up_kernel": any("ffn_up_kernel" in n for n in names)}
     busy = busy_us(prof)
-    out = {"trace_bytes": path.stat().st_size, "found": found,
-           "tokens_per_s": meter.items_per_sec, "launches": launches,
+    out = {"trace_bytes": path.stat().st_size, "found": found, "launches": launches,
            "device_busy_ms": None if busy is None else busy / 1e3}
     log(f"(k4) trace of 4 7B bf16 decode steps: {json.dumps(out)}")
     if not all(found.values()):
@@ -3528,8 +3504,8 @@ def main():
     decode = run_phase("4 decode steps", lambda: decode_step_ms(llms, llm_1b, dev), lambda o: {
         "7b_bf16_b1_ms": _r(o["7B bf16_b1"][0], 3)})
     profiled, k4_counts = run_phase(
-        "(k4) profiling", lambda: run_profiling(dev, llms["bf16"].llama), lambda o: {
-            "tokens_per_s": _r(o[0]["tokens_per_s"], 2), **o[0]["found"]})
+        "(k4) profiling", lambda: run_profiling(dev, llms["bf16"].llama),
+        lambda o: o[0]["found"])
     del llms, llm_1b  # (k1)-(k3) run ranks as processes on this card
     torch.cuda.empty_cache()
     parallel, par_counts = run_phase(

@@ -1,0 +1,9 @@
+"""The mean host length of a decode step (a `prego.generate.tail_step` or
+`prego.generate.step` span) in the traced blocks, ms (moves
+online_frames_per_s)."""
+
+from perf_bench import program_spans as ps
+
+
+def read(loop):
+    return ps.mean_ms(loop.trace, *ps.DECODE)

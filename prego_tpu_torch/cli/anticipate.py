@@ -283,11 +283,21 @@ def run(args: argparse.Namespace, llm=None):
 
     if hasattr(llm, "llama"):
         # prefix-cache observability: a healthy run rebuilds ~once per
-        # context, not per video or step
-        logger.info(
-            f"prefix cache: rebuilds={llm.llama.prefix_rebuilds} "
-            f"extends={llm.llama.prefix_extends}"
-        )
+        # context, not per video or step; prompt-tail steps are decode
+        # steps spent feeding the longer rows' prompts one token at a time
+        lm = llm.llama
+        line = (f"prefix cache: rebuilds={lm.prefix_rebuilds} extends={lm.prefix_extends} "
+                f"tokens_reused={lm.prefix_tokens_reused} "
+                f"suffix_tokens_prefilled={lm.suffix_tokens_prefilled} "
+                f"prompt_tail_steps={lm.prompt_tail_steps} decode_steps={lm.decode_steps}")
+        cb = getattr(llm, "_cb", None)
+        if cb is not None:  # --serving cb: the slots' own counts
+            st = cb.stats
+            line += (f"; cb: tokens_reused={st.prefix_tokens_reused} "
+                     f"suffix_tokens_prefilled={st.suffix_tokens_prefilled} "
+                     f"suffix_tokens_piggybacked={st.suffix_tokens_piggybacked} "
+                     f"decode_steps={st.decode_steps} utilization={st.utilization:.3f}")
+        logger.info(line)
         spec = getattr(llm, "_spec", None)
         if spec is not None and spec.drafts_proposed:
             # the run's realized acceptance (random drafts sit near 0)

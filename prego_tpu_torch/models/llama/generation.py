@@ -20,6 +20,16 @@ the last eos changes no output). Prompts share their longest common
 prefix through an LRU of B=1 prefix caches, as in the JAX package. With
 ``kv_quant`` every cache, the fresh ones and those of the prefix LRU, is
 the int8 cache of ``init_cache(quantized=True)``.
+
+Spans (``core/profiling.annotate``, recorded only under a profiler):
+``prego.generate.prefix`` where a prefix entry is built or extended,
+``prego.generate.prefill`` the prompt or suffix forward,
+``prego.generate.tail_step`` a decode step in which some row still feeds
+its own prompt token, ``prego.generate.step`` every other decode step,
+``prego.generate.readback`` the call's one read of the tokens. Counters
+(host integers, from lengths the host holds): ``prefix_rebuilds``,
+``prefix_extends``, ``decode_steps``, ``prefix_tokens_reused``,
+``suffix_tokens_prefilled``, ``prompt_tail_steps``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from prego_tpu_torch.core.profiling import annotate
 from prego_tpu_torch.core.seed import make_generator
 from prego_tpu_torch.models.llama.config import LlamaConfig
 from prego_tpu_torch.models.llama.model import (
@@ -93,6 +104,11 @@ class Llama:
         self.prefix_rebuilds = 0  # observability: from-scratch prefill count
         self.prefix_extends = 0  # observability: delta-prefill count
         self.decode_steps = 0  # single-token forwards run (all rows at once)
+        # prompt tokens of the rows served from a cached prefix's KV (ServeStats' name)
+        self.prefix_tokens_reused = 0
+        # prompt tokens of the rows through the prompt or suffix forward (ServeStats' name)
+        self.suffix_tokens_prefilled = 0
+        self.prompt_tail_steps = 0  # decode steps in which some row fed its own prompt token
 
     def _new_cache(self, batch: int, spare: int = 0) -> Cache:
         """A zero cache of this model's kind; ``spare`` positions past
@@ -107,6 +123,7 @@ class Llama:
         self,
         tokens: torch.Tensor,  # (B, buf_len) int64, pad-filled, suffix coords
         min_prompt_len: int,
+        max_prompt_len: int,
         total_len: int,
         cache: Cache,
         start_offset: int,  # absolute position of tokens[:, 0]
@@ -118,9 +135,11 @@ class Llama:
         eos_id, pad_id = int(self.tokenizer.eos_id), int(self.tokenizer.pad_id)
         B, buf_len = tokens.shape
         input_text_mask = tokens != pad_id
-        prefill_logits, cache = forward(
-            self.params, tokens, start_offset, cache, config, self.rope
-        )
+        with annotate("prego.generate.prefill"):
+            prefill_logits, cache = forward(
+                self.params, tokens, start_offset, cache, config, self.rope
+            )
+        self.suffix_tokens_prefilled += B * min_prompt_len
         last_logits = prefill_logits[:, min_prompt_len - 1]
         logprobs = None
         if want_logprobs:
@@ -134,22 +153,31 @@ class Llama:
         eos_reached = torch.zeros(B, dtype=torch.bool, device=tokens.device)
         pad = torch.full((B,), pad_id, dtype=tokens.dtype, device=tokens.device)
         for n, cur_pos in enumerate(range(min_prompt_len, total_len)):
-            if n and n % self.EOS_CHECK_EVERY == 0 and bool(eos_reached.all()):
+            tail = cur_pos < max_prompt_len  # some row still feeds its own prompt token
+            with annotate("prego.generate.tail_step" if tail else "prego.generate.step"):
+                next_token = sample_next_token(last_logits, temperature, top_p, self.generator)
+                cur_mask = input_text_mask[:, cur_pos]
+                next_token = torch.where(cur_mask, tokens[:, cur_pos], next_token)
+                next_token = torch.where(eos_reached, pad, next_token)
+                tokens[:, cur_pos] = next_token
+                if want_logprobs:
+                    lp_t = torch.log_softmax(last_logits, dim=-1)
+                    logprobs[:, cur_pos] = torch.gather(lp_t, -1,
+                                                        next_token[:, None].clamp(min=0))[:, 0]
+                eos_reached |= ~cur_mask & (next_token == eos_id)
+                logits, cache = forward(
+                    self.params, next_token[:, None], start_offset + cur_pos, cache, config,
+                    self.rope
+                )
+                self.decode_steps += 1
+                self.prompt_tail_steps += int(tail)
+                last_logits = logits[:, 0]
+                # the all-rows-done check before every EOS_CHECK_EVERY-th next
+                # step, inside this step's span: the host waits there
+                done = ((n + 1) % self.EOS_CHECK_EVERY == 0 and cur_pos + 1 < total_len
+                        and bool(eos_reached.all()))
+            if done:
                 break
-            next_token = sample_next_token(last_logits, temperature, top_p, self.generator)
-            cur_mask = input_text_mask[:, cur_pos]
-            next_token = torch.where(cur_mask, tokens[:, cur_pos], next_token)
-            next_token = torch.where(eos_reached, pad, next_token)
-            tokens[:, cur_pos] = next_token
-            if want_logprobs:
-                lp_t = torch.log_softmax(last_logits, dim=-1)
-                logprobs[:, cur_pos] = torch.gather(lp_t, -1, next_token[:, None].clamp(min=0))[:, 0]
-            eos_reached |= ~cur_mask & (next_token == eos_id)
-            logits, cache = forward(
-                self.params, next_token[:, None], start_offset + cur_pos, cache, config, self.rope
-            )
-            self.decode_steps += 1
-            last_logits = logits[:, 0]
         return tokens, logprobs
 
     # -- low level --
@@ -195,11 +223,12 @@ class Llama:
         else:
             cache = self._new_cache(bsz)
             out_t, lp_t = self._generate_body(
-                torch.from_numpy(tokens).to(self.device), min_prompt_len, total_len,
-                cache, 0, float(temperature), float(top_p), logprobs,
+                torch.from_numpy(tokens).to(self.device), min_prompt_len, max_prompt_len,
+                total_len, cache, 0, float(temperature), float(top_p), logprobs,
             )
-            out = out_t.cpu().numpy()  # one read-back per call
-            lp = lp_t.cpu().numpy() if logprobs else np.zeros_like(out, np.float32)
+            with annotate("prego.generate.readback"):
+                out = out_t.cpu().numpy()  # one read-back per call
+                lp = lp_t.cpu().numpy() if logprobs else np.zeros_like(out, np.float32)
 
         out_tokens, out_logprobs = [], []
         for i, toks in enumerate(out.tolist()):
@@ -232,32 +261,33 @@ class Llama:
             if len(k) < len(prefix) and prefix[: len(k)] == k:
                 if base_key is None or len(k) > len(base_key):
                     base_key = k
-        if base_key is not None:
-            cache = clone_cache(self._prefix_caches[base_key])
-            start = len(base_key)
-            self.prefix_extends += 1
-        else:
-            cache = self._new_cache(1)
-            start = 0
-            self.prefix_rebuilds += 1
-        T = self.config.max_seq_len
-        step = min(self.PREFIX_BUILD_CHUNK, T)
-        buf = np.asarray(prefix, np.int64)
-        for i in range(start, len(prefix), step):
-            # the pad-filled tail writes only past the prefix, and stops at
-            # the cache's end (the JAX package's update clamps the chunk's
-            # start instead, which moves an extension's K/V to the wrong
-            # positions when i + step > max_seq_len)
-            width = min(step, T - i)
-            chunk = buf[i : i + width]
-            if len(chunk) < width:
-                chunk = np.concatenate(
-                    [chunk, np.full(width - len(chunk), self.tokenizer.pad_id, np.int64)]
+        with annotate("prego.generate.prefix"):
+            if base_key is not None:
+                cache = clone_cache(self._prefix_caches[base_key])
+                start = len(base_key)
+                self.prefix_extends += 1
+            else:
+                cache = self._new_cache(1)
+                start = 0
+                self.prefix_rebuilds += 1
+            T = self.config.max_seq_len
+            step = min(self.PREFIX_BUILD_CHUNK, T)
+            buf = np.asarray(prefix, np.int64)
+            for i in range(start, len(prefix), step):
+                # the pad-filled tail writes only past the prefix, and stops
+                # at the cache's end (the JAX package's update clamps the
+                # chunk's start instead, which moves an extension's K/V to
+                # the wrong positions when i + step > max_seq_len)
+                width = min(step, T - i)
+                chunk = buf[i : i + width]
+                if len(chunk) < width:
+                    chunk = np.concatenate(
+                        [chunk, np.full(width - len(chunk), self.tokenizer.pad_id, np.int64)]
+                    )
+                _, cache = forward(
+                    self.params, torch.from_numpy(chunk[None, :]).to(self.device), i,
+                    cache, self.config, self.rope,
                 )
-            _, cache = forward(
-                self.params, torch.from_numpy(chunk[None, :]).to(self.device), i,
-                cache, self.config, self.rope,
-            )
         self._prefix_caches[prefix] = cache
         while len(self._prefix_caches) > self.prefix_cache_slots:
             self._prefix_caches.popitem(last=False)  # evict least-recent
@@ -309,12 +339,15 @@ class Llama:
             tokens[i, : len(s)] = np.asarray(s, np.int64)
 
         # the B=1 prefix KV is copied to the batch; decode writes per row
+        self.prefix_tokens_reused += bsz * eff
         out_t, _ = self._generate_body(
-            torch.from_numpy(tokens).to(self.device), min_s, total_s,
+            torch.from_numpy(tokens).to(self.device), min_s, max_s, total_s,
             clone_cache(cache1, batch=bsz), eff, float(temperature), float(top_p), False,
         )
+        with annotate("prego.generate.readback"):
+            out = out_t.cpu().numpy()  # one read-back per call
         out_tokens = []
-        for i, toks in enumerate(out_t.cpu().numpy().tolist()):
+        for i, toks in enumerate(out.tolist()):
             toks = toks[len(suffixes[i]) : len(suffixes[i]) + max_gen_len]
             if pad_id in toks:
                 toks = toks[: toks.index(pad_id)]

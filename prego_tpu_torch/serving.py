@@ -27,6 +27,12 @@ Serving-scale paths, equal to the per-frame loop:
 
 Frames come in as numpy. The recognizer runs on ``device`` (default the
 card; ``"cpu"`` on request).
+
+Spans (``core/profiling.annotate``, recorded only under a profiler), once a
+block: ``prego.online.recognize`` the block's recognizer work (the frames
+in, the block function, its one host read), ``prego.online.anticipate``
+each ``text_completion`` call. The detectors keep the last block's
+per-frame classes as ``last_ids``, on the device.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from prego_tpu_torch.anticipation.cleaning import clean_generation
 from prego_tpu_torch.anticipation.llm import CompletionLLM
 from prego_tpu_torch.anticipation.prompts import PromptBuilder
 from prego_tpu_torch.core.device import resolve_device
+from prego_tpu_torch.core.profiling import annotate
 from prego_tpu_torch.models.miniroad import MiniROAD
 
 
@@ -221,16 +228,18 @@ class OnlineMistakeDetector:
         self.frame_index = 0
         self.events: List[MistakeEvent] = []
         self._block_fn = None  # built on the first push_frames
+        self.last_ids: Optional[torch.Tensor] = None  # (N,) the last block's classes
 
     def _check_step(self, step: int) -> MistakeEvent:
         seq = self.aggregator.sequence
         i = len(seq) - 1  # the step being checked
         prompt = self.builder.step_prompt(seq, i)
         prompts = [prompt] * (self.num_samples * self.num_samples)
-        results = self.llm.text_completion(
-            prompts, max_gen_len=self.max_gen_len,
-            temperature=self.temperature, top_p=self.top_p,
-        )
+        with annotate("prego.online.anticipate"):
+            results = self.llm.text_completion(
+                prompts, max_gen_len=self.max_gen_len,
+                temperature=self.temperature, top_p=self.top_p,
+            )
         anticipated = {
             clean_generation(r["generation"], self.builder.type_prompt, self.cleaning_mode)
             for r in results
@@ -271,13 +280,18 @@ class OnlineMistakeDetector:
             self._block_fn = _make_detector_block_fn(rec.model, rec.flow_is_zero,
                                                      self.aggregator.window_size)
         N = rgb_block.shape[0]
-        rgb, flow = rec._inputs(rgb_block[:, None, :],
-                                None if flow_block is None else flow_block[:, None, :])
-        counts = torch.as_tensor(self.aggregator.counts[None, :].astype(np.int32)).to(rec.device)
-        in_w = torch.tensor([self.aggregator.in_window], dtype=torch.int32, device=rec.device)
-        (_, completed, winner), rec.hidden, counts, in_w = self._block_fn(
-            rec.params, rgb, flow, rec.hidden, counts, in_w)
-        completed, winner, counts, in_w = _fetch(completed[:, 0], winner[:, 0], counts[0], in_w)
+        with annotate("prego.online.recognize"):
+            rgb, flow = rec._inputs(rgb_block[:, None, :],
+                                    None if flow_block is None else flow_block[:, None, :])
+            counts = torch.as_tensor(
+                self.aggregator.counts[None, :].astype(np.int32)).to(rec.device)
+            in_w = torch.tensor([self.aggregator.in_window], dtype=torch.int32,
+                                device=rec.device)
+            (ids, completed, winner), rec.hidden, counts, in_w = self._block_fn(
+                rec.params, rgb, flow, rec.hidden, counts, in_w)
+            self.last_ids = ids[:, 0]
+            completed, winner, counts, in_w = _fetch(completed[:, 0], winner[:, 0], counts[0],
+                                                     in_w)
         self.aggregator.counts[:] = counts
         self.aggregator.in_window = int(in_w[0])
         events: List[MistakeEvent] = []
@@ -344,6 +358,7 @@ class MultiStreamMistakeDetector:
         self.events: List[List[MistakeEvent]] = [[] for _ in range(B)]
         self._block_fn = _make_detector_block_fn(recognizer.model, recognizer.flow_is_zero,
                                                  window_size)
+        self.last_ids: Optional[torch.Tensor] = None  # (N, B) the last block's classes
 
     def _run_checks(self, checks: List[Dict]) -> List[MistakeEvent]:
         """checks: [{stream, frame_index, step, history}] -> events, with one
@@ -357,10 +372,11 @@ class MultiStreamMistakeDetector:
             prompt = self.builders[c["stream"]].step_prompt(c["history"] + [c["step"]],
                                                             len(c["history"]))
             prompts.extend([prompt] * n_rep)
-        results = self.llm.text_completion(
-            prompts, max_gen_len=self.max_gen_len,
-            temperature=self.temperature, top_p=self.top_p,
-        )
+        with annotate("prego.online.anticipate"):
+            results = self.llm.text_completion(
+                prompts, max_gen_len=self.max_gen_len,
+                temperature=self.temperature, top_p=self.top_p,
+            )
         events = []
         for j, c in enumerate(checks):
             builder = self.builders[c["stream"]]
@@ -384,14 +400,16 @@ class MultiStreamMistakeDetector:
         N, B = rgb_block.shape[:2]
         if B != rec.batch:
             raise ValueError(f"push_frames: {B} streams for a recognizer of {rec.batch}")
-        rgb, flow = rec._inputs(rgb_block, flow_block)
-        counts = torch.as_tensor(
-            np.stack([a.counts for a in self.aggregators]).astype(np.int32)).to(rec.device)
-        in_w = torch.as_tensor(
-            np.array([a.in_window for a in self.aggregators], np.int32)).to(rec.device)
-        (_, completed, winner), rec.hidden, counts, in_w = self._block_fn(
-            rec.params, rgb, flow, rec.hidden, counts, in_w)
-        completed, winner, counts, in_w = _fetch(completed, winner, counts, in_w)
+        with annotate("prego.online.recognize"):
+            rgb, flow = rec._inputs(rgb_block, flow_block)
+            counts = torch.as_tensor(
+                np.stack([a.counts for a in self.aggregators]).astype(np.int32)).to(rec.device)
+            in_w = torch.as_tensor(
+                np.array([a.in_window for a in self.aggregators], np.int32)).to(rec.device)
+            (ids, completed, winner), rec.hidden, counts, in_w = self._block_fn(
+                rec.params, rgb, flow, rec.hidden, counts, in_w)
+            self.last_ids = ids
+            completed, winner, counts, in_w = _fetch(completed, winner, counts, in_w)
         for b, agg in enumerate(self.aggregators):
             agg.counts[:] = counts[b]
             agg.in_window = int(in_w[b])

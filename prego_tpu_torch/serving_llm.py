@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,6 +91,11 @@ class ServeStats:
     @property
     def utilization(self) -> float:
         return self.slot_steps_live / max(self.slot_steps_total, 1)
+
+    def add(self, other: "ServeStats") -> None:
+        """Adds ``other``'s counts and wall time to this one's."""
+        for f in fields(self):
+            setattr(self, f.name, getattr(self, f.name) + getattr(other, f.name))
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -295,6 +300,7 @@ class ContinuousBatcher:
         self._eos_id = int(getattr(llama.tokenizer, "eos_id", -2))
         self._cache: Optional[Cache] = None  # reused across serve() calls
         self._pinned: List[torch.Tensor] = []  # two host buffers for the overlap fetch
+        self.stats = ServeStats()  # serve_prompts' calls, summed
 
     # --------------------------------------------------------- prefixes
 
@@ -565,7 +571,8 @@ class ContinuousBatcher:
         seeding the shared LRU with their COMMON aligned prefix first (the
         sharing structure of the PREGO anticipation dispatch;
         generate_with_prefix_cache computes the same split), and return the
-        generated token lists in input order (eos stripped)."""
+        generated token lists in input order (eos stripped). The call's
+        ServeStats are added to ``self.stats``."""
         if not prompt_tokens:
             return []
         first = list(prompt_tokens[0])
@@ -580,7 +587,8 @@ class ContinuousBatcher:
                     max_gen_len=min(max_gen_len, self.config.max_seq_len - len(t)))
             for i, t in enumerate(prompt_tokens)
         ]
-        done, _ = self.serve(reqs, temperature=temperature, top_p=top_p)
+        done, stats = self.serve(reqs, temperature=temperature, top_p=top_p)
+        self.stats.add(stats)
         out: List[List[int]] = [[] for _ in reqs]
         for c in done:
             toks = c.tokens

@@ -132,7 +132,8 @@ def test_quantized_slice_matches_jax(aggregated, quantize):
 def test_port_quantized_anticipate_cli_never_loads_jax(aggregated, tmp_path):
     """--quantize int8 --kv_quant through the port's anticipate CLI in a
     fresh interpreter (int8 weights drawn directly, int8 KV cache, CPU):
-    metrics come out, and neither jax nor the JAX package is loaded."""
+    metrics come out, the prefix-cache line logs the generation counters,
+    and neither jax nor the JAX package is loaded."""
     agg, agg_path = aggregated
     code = (
         "import sys, json\n"
@@ -155,6 +156,12 @@ def test_port_quantized_anticipate_cli_never_loads_jax(aggregated, tmp_path):
     assert report["jax_package"] == []
     assert report["samples"] == sum(len(v["pred"]) for v in agg.values())
     assert (tmp_path / "results").exists()
+    # the closing prefix-cache line carries the batch path's counters
+    (line,) = [ln for ln in proc.stderr.splitlines() if "prefix cache:" in ln]
+    for key in ("tokens_reused=", "suffix_tokens_prefilled=", "prompt_tail_steps=",
+                "decode_steps="):
+        assert key in line, line
+    assert "utilization=" not in line
 
 
 def test_port_spec_and_checkpoint_anticipate_cli_never_load_jax(aggregated, tmp_path):
@@ -254,8 +261,9 @@ def test_port_cb_cli_and_online_detector_never_load_jax(setup, aggregated, tmp_p
     """In a fresh interpreter: the port's anticipate CLI with --serving cb
     (tiny weights, CPU), then the online multi-stream detector (the init
     checkpoint's MiniROAD, checks through torch-llama in cb mode) over two
-    streams of frames: results come out, and neither jax nor the JAX
-    package is loaded."""
+    streams of frames: results come out, the prefix-cache line logs the
+    slots' counts and utilization, and neither jax nor the JAX package is
+    loaded."""
     _, _, ckpt = setup
     agg, agg_path = aggregated
     code = (
@@ -300,6 +308,9 @@ def test_port_cb_cli_and_online_detector_never_load_jax(setup, aggregated, tmp_p
     assert report["samples"] == sum(len(v["pred"]) for v in agg.values())
     assert report["frames"] == [40, 40] and report["events"] >= 2
     assert (tmp_path / "results").exists()
+    # under --serving cb the prefix-cache line adds the slots' counts
+    (line,) = [ln for ln in proc.stderr.splitlines() if "prefix cache:" in ln]
+    assert "; cb: tokens_reused=" in line and "utilization=" in line, line
 
 
 def test_port_pipeline_cli_never_loads_jax(setup, tmp_path):

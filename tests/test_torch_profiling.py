@@ -1,53 +1,35 @@
-"""The port's core/profiling.py against prego_tpu/core/profiling.py: the
-throughput meter fed the same clock, the trace file with its annotation,
-and the device-time helpers on synthetic spans."""
+"""The port's core/profiling.py: ``annotate`` gated on a recording
+profiler, the trace file with its annotation, and the device-time helpers
+on synthetic spans."""
 
 import glob
 import json
-import time
 from types import SimpleNamespace
 
-import pytest
 import torch
 
 from prego_tpu_torch.core import profiling
 
 
-class _Clock:
-    """time.perf_counter stand-in: each call returns the next reading."""
+def test_annotate_is_a_null_context_without_a_profiler(monkeypatch):
+    """No profiler recording: the shared null context, and no
+    record_function built."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler")
 
-    def __init__(self, readings):
-        self.readings = list(readings)
-
-    def __call__(self):
-        return self.readings.pop(0)
-
-
-@pytest.mark.parametrize("warmup,spans", [(1, [(4, 0.5), (8, 1.0), (8, 3.0)]),
-                                          (5, [(4, 0.5), (6, 1.5)]),
-                                          (0, [(3, 0.0)])])
-def test_throughput_meter_matches_jax(monkeypatch, warmup, spans):
-    """The same intervals through both meters: warm-up intervals dropped,
-    all of them kept where every interval is warm-up, 0 for no time."""
-    from prego_tpu.core.profiling import ThroughputMeter as JaxMeter
-
-    readings = [x for _, s in spans for x in (10.0, 10.0 + s)]
-    results = []
-    for cls in (JaxMeter, profiling.ThroughputMeter):
-        synced = []
-        monkeypatch.setattr(time, "perf_counter", _Clock(readings))
-        meter = cls(warmup=warmup, sync=lambda: synced.append(1))
-        for items, _ in spans:
-            meter.start()
-            meter.stop(items)
-        results.append((meter.items_per_sec, meter.intervals, len(synced)))
-    assert results[0] == results[1]
-    assert results[1][2] == 2 * len(spans)  # a sync at every start and stop
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert profiling.annotate("prego.x") is profiling.NO_SPAN
+    with profiling.annotate("prego.x"), profiling.annotate("prego.y"):  # reusable, nestable
+        pass
 
 
-def test_throughput_meter_stop_without_start():
-    with pytest.raises(AssertionError, match="without start"):
-        profiling.ThroughputMeter().stop(1)
+def test_annotate_records_a_range_under_a_profiler(tmp_path):
+    with profiling.trace(str(tmp_path)) as prof:
+        span = profiling.annotate("prego.x")
+        with span:
+            torch.ones(8) + 1
+    assert span is not profiling.NO_SPAN
+    assert [e.name for e in prof.events() if e.name.startswith("prego.")] == ["prego.x"]
 
 
 def test_trace_writes_the_annotation(tmp_path):
