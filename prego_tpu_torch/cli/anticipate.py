@@ -283,13 +283,14 @@ def run(args: argparse.Namespace, llm=None):
 
     if hasattr(llm, "llama"):
         # prefix-cache observability: a healthy run rebuilds ~once per
-        # context, not per video or step; prompt-tail steps are decode
-        # steps spent feeding the longer rows' prompts one token at a time
+        # context, not per video or step; per-row calls decode ragged
+        # prompts each from its own end, so prompt-tail steps stay 0
         lm = llm.llama
         line = (f"prefix cache: rebuilds={lm.prefix_rebuilds} extends={lm.prefix_extends} "
                 f"tokens_reused={lm.prefix_tokens_reused} "
                 f"suffix_tokens_prefilled={lm.suffix_tokens_prefilled} "
-                f"prompt_tail_steps={lm.prompt_tail_steps} decode_steps={lm.decode_steps}")
+                f"prompt_tail_steps={lm.prompt_tail_steps} per_row_calls={lm.per_row_calls} "
+                f"decode_steps={lm.decode_steps}")
         cb = getattr(llm, "_cb", None)
         if cb is not None:  # --serving cb: the slots' own counts
             st = cb.stats

@@ -5,11 +5,20 @@ Parity surface: Llama.generate / Llama.text_completion
 (llama/generation.py:127-282) and Llama.chat_completion (the LLaMA-2
 [INST]/<<SYS>> format, generation.py:284-395):
   * left-aligned prompts padded with pad_id into a (B, total_len) buffer;
-  * positions still inside a longer prompt keep their prompt token
-    (input_text_mask override, generation.py:204-207);
   * per-prompt eos tracked only on generated positions; the loop ends
     when every row has emitted eos (generation.py:208-212);
   * host-side post-processing cuts echo, max_gen_len and eos.
+
+The JAX package starts every row's decode at the batch's shortest prompt
+and feeds the longer rows' prompt tokens one step at a time
+(input_text_mask, generation.py:204-207). Here the prefill of the whole
+buffer already holds every row's prompt K/V and its last prompt token's
+logits, so every row's decode starts at its own prompt end: where the
+prompts' lengths differ, at per-row positions (``forward``'s (B,)
+start_pos), and the loop runs max_gen_len steps, not max_gen_len plus
+the longest prompt less the shortest. Greedy tokens are the JAX
+package's; a sampled row draws from the same distributions, from fewer
+draws of the stream.
 
 The JAX package runs the decode loop as one jitted while_loop. Here it is
 a Python loop whose per-token work stays on the device: the token buffer,
@@ -24,12 +33,12 @@ the int8 cache of ``init_cache(quantized=True)``.
 Spans (``core/profiling.annotate``, recorded only under a profiler):
 ``prego.generate.prefix`` where a prefix entry is built or extended,
 ``prego.generate.prefill`` the prompt or suffix forward,
-``prego.generate.tail_step`` a decode step in which some row still feeds
-its own prompt token, ``prego.generate.step`` every other decode step,
-``prego.generate.readback`` the call's one read of the tokens. Counters
-(host integers, from lengths the host holds): ``prefix_rebuilds``,
-``prefix_extends``, ``decode_steps``, ``prefix_tokens_reused``,
-``suffix_tokens_prefilled``, ``prompt_tail_steps``.
+``prego.generate.step`` each decode step, ``prego.generate.readback``
+the call's one read of the tokens. Counters (host integers, from lengths
+the host holds): ``prefix_rebuilds``, ``prefix_extends``,
+``decode_steps``, ``prefix_tokens_reused``, ``suffix_tokens_prefilled``,
+``per_row_calls``, and ``prompt_tail_steps``, which stays 0: no step
+feeds a prompt token, so no ``prego.generate.tail_step`` span opens.
 """
 
 from __future__ import annotations
@@ -108,7 +117,10 @@ class Llama:
         self.prefix_tokens_reused = 0
         # prompt tokens of the rows through the prompt or suffix forward (ServeStats' name)
         self.suffix_tokens_prefilled = 0
-        self.prompt_tail_steps = 0  # decode steps in which some row fed its own prompt token
+        # decode steps in which some row fed its own prompt token: none, since
+        # every row starts at its own prompt end (kept for its readers)
+        self.prompt_tail_steps = 0
+        self.per_row_calls = 0  # calls decoded at per-row positions (ragged prompts)
 
     def _new_cache(self, batch: int, spare: int = 0) -> Cache:
         """A zero cache of this model's kind; ``spare`` positions past
@@ -121,64 +133,107 @@ class Llama:
     @torch.no_grad()
     def _generate_body(
         self,
-        tokens: torch.Tensor,  # (B, buf_len) int64, pad-filled, suffix coords
-        min_prompt_len: int,
-        max_prompt_len: int,
-        total_len: int,
-        cache: Cache,
-        start_offset: int,  # absolute position of tokens[:, 0]
+        prompts: List[List[int]],  # each row's prompt tokens past the offset
+        max_gen_len: int,
+        prefix: Optional[Cache],  # a B=1 cache holding the offset's K/V, or None
+        start_offset: int,  # absolute position of each prompt's first token
         temperature: float,
         top_p: float,
         want_logprobs: bool,
-    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """The (B, buf_len) pad-filled buffer of prompts and generated tokens
+        and, with ``want_logprobs``, each token's f32 logprob (0 at column 0
+        and past the generated tokens). One prefill of the whole buffer
+        writes every row's prompt K/V and gives each row's first logits at
+        its own last prompt token. Row i's t-th token goes to column
+        len_i + t and is fed at position start_offset + len_i + t: one
+        scalar position where every prompt has the same length, else a
+        (B,) device tensor of per-row positions (``forward``). A row whose
+        next column lies past the cache emits pad, and its feeds land in a
+        one-position spare tail of the cache, never over a live key."""
         config = self.config
         eos_id, pad_id = int(self.tokenizer.eos_id), int(self.tokenizer.pad_id)
-        B, buf_len = tokens.shape
-        input_text_mask = tokens != pad_id
+        dev = self.device
+        B = len(prompts)
+        lens = [len(p) for p in prompts]
+        min_len, max_len = min(lens), max(lens)
+        room = config.max_seq_len - start_offset  # cache positions past the offset
+        total_len = min(room, max_gen_len + max_len)
+        buf_len = min(_round_up(total_len, self.pad_to_multiple), room)
+        buf = np.full((B, buf_len), pad_id, np.int64)
+        for i, p in enumerate(prompts):
+            buf[i, : len(p)] = np.asarray(p, np.int64)
+        if min_len == total_len:  # nothing to generate (generation.py:179-186 edge)
+            return buf, (np.zeros((B, buf_len), np.float32) if want_logprobs else None)
+        steps = min(max_gen_len, room - min_len)  # the shortest row's tokens
+        per_row = min_len != max_len
+        spare = int(max_len + steps > room)  # a row runs out of cache before the loop ends
+        cache = (self._new_cache(B, spare=spare) if prefix is None
+                 else clone_cache(prefix, batch=B, spare=spare))
+        tokens = torch.from_numpy(buf).to(dev)
         with annotate("prego.generate.prefill"):
             prefill_logits, cache = forward(
                 self.params, tokens, start_offset, cache, config, self.rope
             )
-        self.suffix_tokens_prefilled += B * min_prompt_len
-        last_logits = prefill_logits[:, min_prompt_len - 1]
-        logprobs = None
+        self.suffix_tokens_prefilled += sum(lens)
+        lens_t = torch.tensor(lens, device=dev) if per_row or want_logprobs else None
+        past_end = None
+        if per_row:
+            self.per_row_calls += 1
+            last_logits = prefill_logits[torch.arange(B, device=dev), lens_t - 1]
+            ahead = lens_t[None, :] + torch.arange(steps, device=dev)[:, None]  # (steps, B)
+            positions = (start_offset + ahead).to(torch.int32)  # step t's, row by row
+            if spare:
+                past_end = ahead >= room
+        else:
+            last_logits = prefill_logits[:, min_len - 1]
         if want_logprobs:
-            # prompt-token logprobs: position i+1 scored by logits at i
-            logprobs = torch.zeros(B, buf_len, dtype=torch.float32, device=tokens.device)
+            # prompt-token logprobs: position i+1 scored by the prefill's logits at i
             lp = torch.log_softmax(prefill_logits[:, :-1], dim=-1)
             gathered = torch.gather(lp, -1, tokens[:, 1:, None].clamp(min=0))[..., 0]
-            pos = torch.arange(1, buf_len, device=tokens.device)[None, :]
-            in_prompt = (pos < min_prompt_len) & input_text_mask[:, 1:]
-            logprobs[:, 1:] = torch.where(in_prompt, gathered, torch.zeros_like(gathered))
-        eos_reached = torch.zeros(B, dtype=torch.bool, device=tokens.device)
-        pad = torch.full((B,), pad_id, dtype=tokens.dtype, device=tokens.device)
-        for n, cur_pos in enumerate(range(min_prompt_len, total_len)):
-            tail = cur_pos < max_prompt_len  # some row still feeds its own prompt token
-            with annotate("prego.generate.tail_step" if tail else "prego.generate.step"):
+            in_prompt = torch.arange(1, buf_len, device=dev)[None, :] < lens_t[:, None]
+            prompt_lp = torch.where(in_prompt, gathered, torch.zeros_like(gathered))
+            gen_lp = torch.zeros(B, steps, dtype=torch.float32, device=dev)
+        gen = torch.full((B, steps), pad_id, dtype=torch.int64, device=dev)
+        eos_reached = torch.zeros(B, dtype=torch.bool, device=dev)
+        pad = torch.full((B,), pad_id, dtype=torch.int64, device=dev)
+        for t in range(steps):
+            with annotate("prego.generate.step"):
                 next_token = sample_next_token(last_logits, temperature, top_p, self.generator)
-                cur_mask = input_text_mask[:, cur_pos]
-                next_token = torch.where(cur_mask, tokens[:, cur_pos], next_token)
+                if past_end is not None:  # rows past the cache's end are done
+                    eos_reached |= past_end[t]
                 next_token = torch.where(eos_reached, pad, next_token)
-                tokens[:, cur_pos] = next_token
+                gen[:, t] = next_token
                 if want_logprobs:
                     lp_t = torch.log_softmax(last_logits, dim=-1)
-                    logprobs[:, cur_pos] = torch.gather(lp_t, -1,
-                                                        next_token[:, None].clamp(min=0))[:, 0]
-                eos_reached |= ~cur_mask & (next_token == eos_id)
+                    gen_lp[:, t] = torch.gather(lp_t, -1, next_token[:, None].clamp(min=0))[:, 0]
+                eos_reached |= next_token == eos_id
+                pos = positions[t] if per_row else start_offset + min_len + t
                 logits, cache = forward(
-                    self.params, next_token[:, None], start_offset + cur_pos, cache, config,
-                    self.rope
+                    self.params, next_token[:, None], pos, cache, config, self.rope
                 )
                 self.decode_steps += 1
-                self.prompt_tail_steps += int(tail)
                 last_logits = logits[:, 0]
                 # the all-rows-done check before every EOS_CHECK_EVERY-th next
                 # step, inside this step's span: the host waits there
-                done = ((n + 1) % self.EOS_CHECK_EVERY == 0 and cur_pos + 1 < total_len
+                done = ((t + 1) % self.EOS_CHECK_EVERY == 0 and t + 1 < steps
                         and bool(eos_reached.all()))
             if done:
                 break
-        return tokens, logprobs
+        with annotate("prego.generate.readback"):  # one read-back per call
+            gen_np = gen.cpu().numpy()
+            if want_logprobs:
+                prompt_lp_np, gen_lp_np = prompt_lp.cpu().numpy(), gen_lp.cpu().numpy()
+        lp_out = None
+        if want_logprobs:
+            lp_out = np.zeros((B, buf_len), np.float32)
+            lp_out[:, 1:] = prompt_lp_np
+        for i, n in enumerate(lens):
+            k = min(steps, buf_len - n)  # a row stops at the buffer's (the cache's) end
+            buf[i, n : n + k] = gen_np[i, :k]
+            if want_logprobs:
+                lp_out[i, n : n + k] = gen_lp_np[i, :k]
+        return buf, lp_out
 
     # -- low level --
 
@@ -206,36 +261,19 @@ class Llama:
                 if logprobs:
                     out_lp.extend(lps)
             return out, (out_lp if logprobs else None)
-        min_prompt_len = min(len(t) for t in prompt_tokens)
         max_prompt_len = max(len(t) for t in prompt_tokens)
         if max_prompt_len > config.max_seq_len:
             raise ValueError(f"prompt of {max_prompt_len} tokens exceeds max_seq_len")
-        total_len = min(config.max_seq_len, max_gen_len + max_prompt_len)
         pad_id = self.tokenizer.pad_id
-        buf_len = min(_round_up(total_len, self.pad_to_multiple), config.max_seq_len)
-        tokens = np.full((bsz, buf_len), pad_id, np.int64)
-        for i, t in enumerate(prompt_tokens):
-            tokens[i, : len(t)] = np.asarray(t, np.int64)
-
-        if min_prompt_len == total_len:
-            out = tokens  # nothing to generate (generation.py:179-186 edge)
-            lp = np.zeros_like(tokens, np.float32)
-        else:
-            cache = self._new_cache(bsz)
-            out_t, lp_t = self._generate_body(
-                torch.from_numpy(tokens).to(self.device), min_prompt_len, max_prompt_len,
-                total_len, cache, 0, float(temperature), float(top_p), logprobs,
-            )
-            with annotate("prego.generate.readback"):
-                out = out_t.cpu().numpy()  # one read-back per call
-                lp = lp_t.cpu().numpy() if logprobs else np.zeros_like(out, np.float32)
+        out, lp = self._generate_body(prompt_tokens, max_gen_len, None, 0, float(temperature),
+                                      float(top_p), logprobs)
 
         out_tokens, out_logprobs = [], []
         for i, toks in enumerate(out.tolist()):
             start = 0 if echo else len(prompt_tokens[i])
             stop = len(prompt_tokens[i]) + max_gen_len
             toks = toks[start:stop]
-            probs = lp[i].tolist()[start:stop]
+            probs = lp[i].tolist()[start:stop] if logprobs else []
             if pad_id in toks:  # cut at pad (padding / post-eos fill), then at eos
                 cut = toks.index(pad_id)
                 toks, probs = toks[:cut], probs[:cut]
@@ -329,23 +367,11 @@ class Llama:
 
         cache1 = self._ensure_prefix_cache(tuple(first[:eff]))
         suffixes = [t[eff:] for t in prompt_tokens]
-        min_s = min(len(s) for s in suffixes)
-        max_s = max(len(s) for s in suffixes)
-        total_s = min(config.max_seq_len - eff, max_gen_len + max_s)
-        pad_id = self.tokenizer.pad_id
-        buf_len = min(_round_up(total_s, self.pad_to_multiple), config.max_seq_len - eff)
-        tokens = np.full((bsz, buf_len), pad_id, np.int64)
-        for i, s in enumerate(suffixes):
-            tokens[i, : len(s)] = np.asarray(s, np.int64)
-
         # the B=1 prefix KV is copied to the batch; decode writes per row
         self.prefix_tokens_reused += bsz * eff
-        out_t, _ = self._generate_body(
-            torch.from_numpy(tokens).to(self.device), min_s, max_s, total_s,
-            clone_cache(cache1, batch=bsz), eff, float(temperature), float(top_p), False,
-        )
-        with annotate("prego.generate.readback"):
-            out = out_t.cpu().numpy()  # one read-back per call
+        out, _ = self._generate_body(suffixes, max_gen_len, cache1, eff, float(temperature),
+                                     float(top_p), False)
+        pad_id = self.tokenizer.pad_id
         out_tokens = []
         for i, toks in enumerate(out.tolist()):
             toks = toks[len(suffixes[i]) : len(suffixes[i]) + max_gen_len]

@@ -365,13 +365,18 @@ def init_cache(
     return {key: [leaf() for _ in range(config.n_layers)] for key in ("k", "v")}
 
 
-def clone_cache(cache: Cache, batch: Optional[int] = None) -> Cache:
-    """A copy of ``cache``; with ``batch``, its B=1 rows repeated to that batch."""
+def clone_cache(cache: Cache, batch: Optional[int] = None, spare: int = 0) -> Cache:
+    """A copy of ``cache``; with ``batch``, its B=1 rows repeated to that
+    batch; with ``spare``, that many zero positions appended to its T axis
+    (``init_cache``'s spare tail)."""
 
     def copy(t):
         if isinstance(t, dict):
             return {k: copy(v) for k, v in t.items()}
-        return t.clone() if batch is None else t.repeat(batch, *([1] * (t.ndim - 1)))
+        t = t.clone() if batch is None else t.repeat(batch, *([1] * (t.ndim - 1)))
+        if spare:
+            t = torch.cat([t, t.new_zeros(t.shape[:2] + (spare,) + t.shape[3:])], dim=2)
+        return t
 
     return {key: [copy(t) for t in cache[key]] for key in ("k", "v")}
 

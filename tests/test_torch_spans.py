@@ -72,10 +72,11 @@ def _run(lm, path, prompts, gen_len=6):
 
 @pytest.mark.parametrize("path", ["prefix", "plain"])
 def test_generate_spans_in_order_and_counted(params, tmp_path, path):
-    """prefix (prefix path, on its miss), prefill, the tail steps, the other
-    steps, the read-back; the tail steps number the longest suffix less the
-    shortest, as ``prompt_tail_steps`` counts them, and all decode-step
-    spans the increase in ``decode_steps``."""
+    """prefix (prefix path, on its miss), prefill, the decode steps, the
+    read-back. The prompts' lengths differ, so every row decodes from its
+    own prompt end: no tail step, one step span a generated token
+    (``decode_steps``), the prefill counted with every row's whole suffix
+    and the call with ``per_row_calls``."""
     lm = _llama(params)
     prompts = _prompts()
     eff = 64 if path == "prefix" else 0  # the cached prefix, one PREFIX_CHUNK
@@ -85,11 +86,11 @@ def test_generate_spans_in_order_and_counted(params, tmp_path, path):
         _run(lm, path, prompts)
     names = _spans(prof)
     head = [PREFIX, PREFILL] if path == "prefix" else [PREFILL]
-    tails = max(lens) - min(lens)
     steps = lm.decode_steps - before
-    assert names == head + [TAIL] * tails + [STEP] * (steps - tails) + [READBACK]
-    assert lm.prompt_tail_steps == tails == 6
-    assert lm.suffix_tokens_prefilled == len(prompts) * min(lens)
+    assert names == head + [STEP] * steps + [READBACK]
+    assert TAIL not in names and steps == 6  # max_gen_len steps
+    assert lm.prompt_tail_steps == 0 and lm.per_row_calls == 1
+    assert lm.suffix_tokens_prefilled == sum(lens)
     assert lm.prefix_tokens_reused == len(prompts) * eff
 
 
@@ -119,7 +120,7 @@ def test_no_profiler_no_record_function_and_the_same_tokens(params, tmp_path, mo
     assert profiling.annotate(STEP) is profiling.NO_SPAN
     lm = _llama(params)
     assert _run(lm, path, prompts) == traced
-    assert lm.prompt_tail_steps == 6
+    assert (lm.prompt_tail_steps, lm.decode_steps, lm.per_row_calls) == (0, 6, 1)
 
 
 @pytest.fixture(scope="module")
