@@ -2806,16 +2806,16 @@ def quant_bars_met(f, rms_budget, T):
 @contextlib.contextmanager
 def plain_int8_products():
     """The model's int8 products through K4's and K5's plain versions."""
-    from prego_tpu_torch.models.llama import model
+    from prego_tpu_torch.models.llama import layers
     from prego_tpu_torch.ops import quant
 
-    saved = (model.int8_matmul, model.int8xint8_matmul)
-    model.int8_matmul = quant.int8_matmul_reference
-    model.int8xint8_matmul = quant.int8xint8_matmul_reference
+    saved = (layers.int8_matmul, layers.int8xint8_matmul)
+    layers.int8_matmul = quant.int8_matmul_reference
+    layers.int8xint8_matmul = quant.int8xint8_matmul_reference
     try:
         yield
     finally:
-        model.int8_matmul, model.int8xint8_matmul = saved
+        layers.int8_matmul, layers.int8xint8_matmul = saved
 
 
 @torch.no_grad()

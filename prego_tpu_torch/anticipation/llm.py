@@ -15,7 +15,11 @@ stripped (llama/generation.py:233-282). Here:
     ``serving="cb"`` routes every call through the continuous-batching
     slot loop (``serving_llm.ContinuousBatcher``, ``cb_slots`` slots);
     ``spec_k`` with ``spec_draft`` decodes speculatively
-    (``models/llama/speculative.py``) on the batch path.
+    (``models/llama/speculative.py``) on the batch path. A DeepSeek-V2
+    model (a ``DeepseekV2Config``: ``params=`` with ``config=``, or
+    ``fabricated="dsv2-lite"``) is served as its tree comes, bf16 on one
+    card through ``serving="batch"``; ``quantize``, ``kv_quant``,
+    ``serving="cb"``, ``spec_k`` and ``tp`` refuse it.
 
 TorchLlamaLLM takes its weights from a Meta checkpoint directory
 (``params.json`` and ``consolidated.*.pth``) or an HF export
@@ -192,13 +196,25 @@ FABRICATED_SHAPES = {
     "1b": dict(dim=2048, n_layers=16, n_heads=16),
     "tiny": dict(dim=64, n_layers=2, n_heads=4),
 }
+# DeepSeek-V2 shapes: DeepSeek-V2-Lite at its published widths and depth, and
+# the CPU tests' miniature
+LATENT_FABRICATED = ("dsv2-lite", "dsv2-tiny")
 
 
 def fabricated_config(shape: str, max_seq_len: int, max_batch_size: int, n_layers=None):
     """The LlamaConfig of a fabricated shape (the JAX adapter's
-    ``_init_fabricated``); ``n_layers`` cuts depth, widths stay."""
-    from prego_tpu_torch.models.llama.config import LlamaConfig
+    ``_init_fabricated``); ``n_layers`` cuts depth, widths stay. The
+    DeepSeek-V2 shapes give a ``DeepseekV2Config``."""
+    import dataclasses
 
+    from prego_tpu_torch.models.llama.config import (
+        LlamaConfig, deepseek_v2_lite_config, tiny_deepseek_v2_config,
+    )
+
+    if shape in LATENT_FABRICATED:
+        make = deepseek_v2_lite_config if shape == "dsv2-lite" else tiny_deepseek_v2_config
+        cfg = make(max_seq_len=max_seq_len, max_batch_size=max_batch_size)
+        return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
     s = FABRICATED_SHAPES[shape]
     return LlamaConfig(
         dim=s["dim"], n_layers=n_layers or s["n_layers"], n_heads=s["n_heads"],
@@ -332,7 +348,8 @@ class TorchLlamaLLM:
         tokenizer_path: Optional[str] = None,
         max_seq_len: int = 512,
         max_batch_size: int = 8,
-        fabricated: Optional[str] = None,  # "7b"/"13b"/"1b"/"tiny": random weights
+        fabricated: Optional[str] = None,  # "7b"/"13b"/"1b"/"tiny", "dsv2-lite"/
+        # "dsv2-tiny" (DeepSeek-V2): random weights
         orbax_dir: Optional[str] = None,  # cache of a Meta directory's converted
         # weights (checkpoint/params_io.py); with quantize="int8" the int8
         # serving tree, restored directly by later builds
@@ -355,6 +372,7 @@ class TorchLlamaLLM:
         # initialized world in bf16, 1 under quantize
     ):
         from prego_tpu_torch.models.llama import ByteTokenizer, Llama, load_tokenizer
+        from prego_tpu_torch.models.llama.config import is_latent, refuse_latent
         from prego_tpu_torch.models.llama.model import (
             fuse_projections, init_params, init_params_quantized, is_quantized,
             mark_activations, quantize_params,
@@ -372,6 +390,14 @@ class TorchLlamaLLM:
                              "incompatible with --serving cb)")
         if bool(spec_k) != (spec_draft is not None):
             raise ValueError("spec_k and spec_draft must be set together")
+        if fabricated in LATENT_FABRICATED:
+            config = fabricated_config(fabricated, max_seq_len, max_batch_size)
+        # DeepSeek-V2 serves in bf16 through the batch path only
+        for on, what in ((quantize, f"quantize={quantize!r}"), (kv_quant, "kv_quant"),
+                         (serving == "cb", "serving='cb'"), (spec_k, "spec_k"),
+                         (tp is not None and tp > 1, f"tp={tp}")):
+            if on and config is not None:
+                refuse_latent(config, what)
         self._serving = serving
         self._cb_slots = cb_slots
         self._cb = None  # built on the first cb call
@@ -420,7 +446,8 @@ class TorchLlamaLLM:
         elif params is not None:
             if config is None:
                 raise ValueError("params= needs config=")
-            if "wqkv" not in params["layers"][0]["attention"]:
+            # DeepSeek-V2's tree is served as it comes
+            if not is_latent(config) and "wqkv" not in params["layers"][0]["attention"]:
                 params = fuse_projections(params)
             if is_quantized(params["output"]):
                 # an int8 tree runs as given, its marker set by ``quantize``
@@ -435,6 +462,8 @@ class TorchLlamaLLM:
             if quantize:  # int8 drawn directly: no bf16 model first
                 params = init_params_quantized(config, gen, fused=True, dtype=dtype,
                                                device=device, activations=act_quant)
+            elif is_latent(config):  # DeepSeek-V2's serving tree
+                params = init_params(config, gen, dtype=dtype, device=device)
             else:
                 params = fuse_projections(init_params(config, gen, dtype=dtype, device=device))
         else:

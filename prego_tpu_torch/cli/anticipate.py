@@ -122,10 +122,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--max_seq_len", type=int, default=512)
     p.add_argument("--max_batch_size", type=int, default=8)
     p.add_argument("--fabricated", type=str, default=None,
-                   choices=["7b", "13b", "1b", "tiny"],
+                   choices=["7b", "13b", "1b", "tiny", "dsv2-lite", "dsv2-tiny"],
                    help="random weights at a reference serving shape — "
                         "TIMING runs of the full driver at scale (metrics "
-                        "are meaningless); no --ckpt_dir needed")
+                        "are meaningless); no --ckpt_dir needed; dsv2-lite is "
+                        "DeepSeek-V2-Lite (latent attention, 64 routed + 2 shared "
+                        "experts), bf16, batch serving only")
     p.add_argument("--orbax_dir", type=str, default=None,
                    help="cache of a Meta checkpoint's converted weights; with --quantize "
                         "int8 it holds the fused int8 serving tree and later runs restore "
@@ -285,12 +287,17 @@ def run(args: argparse.Namespace, llm=None):
         # prefix-cache observability: a healthy run rebuilds ~once per
         # context, not per video or step; per-row calls decode ragged
         # prompts each from its own end, so prompt-tail steps stay 0
+        from prego_tpu_torch.models.llama.config import is_latent
+
         lm = llm.llama
         line = (f"prefix cache: rebuilds={lm.prefix_rebuilds} extends={lm.prefix_extends} "
                 f"tokens_reused={lm.prefix_tokens_reused} "
                 f"suffix_tokens_prefilled={lm.suffix_tokens_prefilled} "
                 f"prompt_tail_steps={lm.prompt_tail_steps} per_row_calls={lm.per_row_calls} "
                 f"decode_steps={lm.decode_steps}")
+        if is_latent(lm.config):  # DeepSeek-V2: the routed experts' counters
+            line += (f"; moe: assignments={lm.moe_assignments} "
+                     f"expert_hits={lm.moe_expert_hits} rows_max={lm.moe_rows_max}")
         cb = getattr(llm, "_cb", None)
         if cb is not None:  # --serving cb: the slots' own counts
             st = cb.stats

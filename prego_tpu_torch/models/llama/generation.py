@@ -39,6 +39,16 @@ the host holds): ``prefix_rebuilds``, ``prefix_extends``,
 ``decode_steps``, ``prefix_tokens_reused``, ``suffix_tokens_prefilled``,
 ``per_row_calls``, and ``prompt_tail_steps``, which stays 0: no step
 feeds a prompt token, so no ``prego.generate.tail_step`` span opens.
+
+DeepSeek-V2 (a ``DeepseekV2Config``) is served by the same code over its
+latent cache. Its MoE counters: every forward of a call (prefix builds,
+prefill, decode steps) copies each MoE layer's expert offsets into a slot
+of one device buffer, made once; the host reads the call's slots right
+after its read-back of the tokens, so no step waits for them, and keeps
+``moe_assignments`` (token-expert pairs), ``moe_expert_hits`` (the sum over
+layer-forwards of the experts that got a row), ``moe_rows_max`` (the sum
+of the busiest expert's rows) and ``moe_last_counts``, the last call's
+rows (forward, MoE layer, expert). A LLaMA config has no buffer.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ import torch
 
 from prego_tpu_torch.core.profiling import annotate
 from prego_tpu_torch.core.seed import make_generator
-from prego_tpu_torch.models.llama.config import LlamaConfig
+from prego_tpu_torch.models.llama.config import LlamaConfig, is_latent, refuse_latent
 from prego_tpu_torch.models.llama.model import (
     Cache,
     Params,
@@ -121,6 +131,39 @@ class Llama:
         # every row starts at its own prompt end (kept for its readers)
         self.prompt_tail_steps = 0
         self.per_row_calls = 0  # calls decoded at per-row positions (ragged prompts)
+        self.moe_assignments = self.moe_expert_hits = self.moe_rows_max = 0
+        self.moe_last_counts: Optional[np.ndarray] = None  # (forwards, MoE layers, experts)
+        self._moe_offsets: Optional[torch.Tensor] = None
+        self._moe_forwards = 0  # slots of the buffer this call has filled
+        if is_latent(config):
+            if kv_quant:
+                refuse_latent(config, "the int8 KV cache (kv_quant)")
+            # a call's forwards: its prefix chunks, the prefill and its steps
+            slots = 2 + config.max_seq_len + -(-config.max_seq_len // self.PREFIX_BUILD_CHUNK)
+            self._moe_offsets = torch.zeros(slots, config.n_moe_layers, config.n_routed_experts,
+                                            dtype=torch.int32, device=self.device)
+
+    def _moe_slot(self) -> Optional[torch.Tensor]:
+        """The next forward's (MoE layers, experts) slot of the counters'
+        buffer; None for a LLaMA config."""
+        if self._moe_offsets is None:
+            return None
+        slot = self._moe_offsets[self._moe_forwards]
+        self._moe_forwards += 1
+        return slot
+
+    def _moe_collect(self) -> None:
+        """Reads this call's slots (after its read-back: nothing waits) into
+        the MoE counters."""
+        if not self._moe_forwards:
+            return
+        offs = self._moe_offsets[: self._moe_forwards].cpu().numpy().astype(np.int64)
+        self._moe_forwards = 0
+        counts = np.diff(offs, axis=-1, prepend=0)
+        self.moe_last_counts = counts
+        self.moe_assignments += int(counts.sum())
+        self.moe_expert_hits += int((counts > 0).sum())
+        self.moe_rows_max += int(counts.max(axis=-1).sum())
 
     def _new_cache(self, batch: int, spare: int = 0) -> Cache:
         """A zero cache of this model's kind; ``spare`` positions past
@@ -164,6 +207,7 @@ class Llama:
         for i, p in enumerate(prompts):
             buf[i, : len(p)] = np.asarray(p, np.int64)
         if min_len == total_len:  # nothing to generate (generation.py:179-186 edge)
+            self._moe_collect()
             return buf, (np.zeros((B, buf_len), np.float32) if want_logprobs else None)
         steps = min(max_gen_len, room - min_len)  # the shortest row's tokens
         per_row = min_len != max_len
@@ -173,7 +217,7 @@ class Llama:
         tokens = torch.from_numpy(buf).to(dev)
         with annotate("prego.generate.prefill"):
             prefill_logits, cache = forward(
-                self.params, tokens, start_offset, cache, config, self.rope
+                self.params, tokens, start_offset, cache, config, self.rope, self._moe_slot()
             )
         self.suffix_tokens_prefilled += sum(lens)
         lens_t = torch.tensor(lens, device=dev) if per_row or want_logprobs else None
@@ -210,7 +254,8 @@ class Llama:
                 eos_reached |= next_token == eos_id
                 pos = positions[t] if per_row else start_offset + min_len + t
                 logits, cache = forward(
-                    self.params, next_token[:, None], pos, cache, config, self.rope
+                    self.params, next_token[:, None], pos, cache, config, self.rope,
+                    self._moe_slot()
                 )
                 self.decode_steps += 1
                 last_logits = logits[:, 0]
@@ -224,6 +269,7 @@ class Llama:
             gen_np = gen.cpu().numpy()
             if want_logprobs:
                 prompt_lp_np, gen_lp_np = prompt_lp.cpu().numpy(), gen_lp.cpu().numpy()
+        self._moe_collect()
         lp_out = None
         if want_logprobs:
             lp_out = np.zeros((B, buf_len), np.float32)
@@ -324,7 +370,7 @@ class Llama:
                     )
                 _, cache = forward(
                     self.params, torch.from_numpy(chunk[None, :]).to(self.device), i,
-                    cache, self.config, self.rope,
+                    cache, self.config, self.rope, self._moe_slot(),
                 )
         self._prefix_caches[prefix] = cache
         while len(self._prefix_caches) > self.prefix_cache_slots:

@@ -63,9 +63,22 @@ the same on the CPU, where each wrapper runs its plain version.
 Prefill attention, bf16 projections and sampling are plain PyTorch, as
 they are plain XLA in the JAX package.
 
+DeepSeek-V2 (a ``DeepseekV2Config``, which the JAX package has no
+counterpart of) runs through the same ``forward``: ``init_params`` and
+``init_cache`` give its tree (laid out by ``latent_layout`` and
+``latent_tree``) and latent cache, ``precompute_rope`` its
+YaRN tables, and each layer dispatches by kind to multi-head latent
+attention (``mla.py``) and to the dense SwiGLU sub-layer (the first
+layers, ``_ffn_sublayer`` as for LLaMA) or DeepSeekMoE (``moe.py``, a layer
+whose tree holds ``"moe"``). It serves in bf16 on one card: quantization,
+the int8 cache and tensor parallelism refuse it. The blocks that the
+three share (a projection, the rotary embedding, the SwiGLU FFN) are in
+``layers.py``.
+
 Quantized serving (``quantize_params``, ``init_params_quantized``): each
 projection leaf becomes ``{"q": int8 (K, N), "s": f32 (1, N)}``, plus an
-empty-tuple ``"act"`` marker for int8 x int8 projections. ``_dense`` sends
+empty-tuple ``"act"`` marker for int8 x int8 projections. ``_dense``
+(``layers.dense``) sends
 every such leaf through K4 (weight-only) or ``quantize_activations`` and
 K5, at prefill as at decode. The JAX package sends projections with a
 dimension of 4096 or more to an XLA dot on the TPU (``_q8_dense_backend``,
@@ -98,25 +111,25 @@ draws the same tokens on every rank.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from prego_tpu_torch.models.llama.config import LlamaConfig
+from prego_tpu_torch.models.llama import mla, moe
+from prego_tpu_torch.models.llama.config import LlamaConfig, is_latent, refuse_latent
+from prego_tpu_torch.models.llama.layers import apply_rope, is_quantized
+from prego_tpu_torch.models.llama.layers import dense as _dense
+from prego_tpu_torch.models.llama.layers import feed_forward as _feed_forward
 from prego_tpu_torch.ops.decode_attention import decode_attention
 from prego_tpu_torch.ops.decode_attention_q8 import decode_attention_q8
 from prego_tpu_torch.ops.decode_attention_wo import (
     decode_attention_wo, decode_attention_wo_res_upd,
 )
-from prego_tpu_torch.ops.dense import bmm_f32, mm_f32
+from prego_tpu_torch.ops.dense import bmm_f32
 from prego_tpu_torch.ops.fused_dense import fused_dense_q8
-from prego_tpu_torch.ops.fused_ffn import (
-    fused_ffn, fused_ffn_block, fused_ffn_block_q8, rms_norm,
-)
-from prego_tpu_torch.ops.quant import (
-    int8_matmul, int8xint8_matmul, quantize_activations, quantize_weight,
-)
+from prego_tpu_torch.ops.fused_ffn import fused_ffn_block, fused_ffn_block_q8, rms_norm
+from prego_tpu_torch.ops.quant import quantize_weight
 
 Params = Dict[str, Any]
 # {"k": [per-layer], "v": [per-layer]}; a layer's leaf is a tensor, or
@@ -179,11 +192,6 @@ def fusion_gates() -> FusionGates:
 TP_GATES = FusionGates(False, False, False, False, False, False)
 
 
-def is_quantized(leaf) -> bool:
-    """An int8 projection leaf {"q", "s"[, "act"]}."""
-    return isinstance(leaf, dict) and "q" in leaf
-
-
 def _weight_only_q8(leaf) -> bool:
     """An int8 leaf without the int8 x int8 marker: the leaves K9 and K7q take."""
     return is_quantized(leaf) and "act" not in leaf
@@ -195,7 +203,8 @@ def init_params(
     config: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat16, device="cpu"
 ) -> Params:
     """Random init, normal scaled by 1/sqrt(d_in) (the JAX package's
-    distribution; its draws differ). Real weights come from a converter."""
+    distribution; its draws differ). Real weights come from a converter.
+    A ``DeepseekV2Config`` gets its serving tree (``latent_tree``)."""
     D, V, F = config.dim, config.vocab_size, config.ffn_hidden
     H, KV, hd = config.n_heads, config.kv_heads, config.head_dim
 
@@ -205,6 +214,14 @@ def init_params(
 
     def ones():
         return torch.ones(D, dtype=dtype, device=device)
+
+    if is_latent(config):
+        def draw(shape):
+            w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+            return (w * shape[-2] ** -0.5).to(dtype)
+
+        return latent_tree(config, [draw(shape) for _, shape in latent_layout(config)],
+                           draw((V, D)), dtype, device)
 
     layers = []
     for _ in range(config.n_layers):
@@ -227,6 +244,47 @@ def init_params(
         "norm": ones(),
         "output": dense(D, V),
     }
+
+
+def latent_layout(config) -> List[Tuple[Tuple[Any, ...], Tuple[int, ...]]]:
+    """(path in the tree, shape) of every matrix of DeepSeek-V2's serving
+    tree but the embedding, in the order ``latent_tree`` takes them: each
+    layer's MLA (``mla.matrices``), then its dense SwiGLU (fused w13 = w1 |
+    w3) before ``first_k_dense_replace`` or its DeepSeekMoE
+    (``moe.matrices``), then the lm-head. A matrix's input width is
+    ``shape[-2]``."""
+    D, F = config.dim, config.ffn_hidden
+    out = []
+    for i in range(config.n_layers):
+        out += [(("layers", i, "attention", name), shape)
+                for name, shape in mla.matrices(config)]
+        if config.is_moe_layer(i):
+            out += [(("layers", i, "moe") + path, shape) for path, shape in moe.matrices(config)]
+        else:
+            out += [(("layers", i, "feed_forward", "w13"), (D, 2 * F)),
+                    (("layers", i, "feed_forward", "w2"), (F, D))]
+    return out + [(("output",), (D, config.vocab_size))]
+
+
+def latent_tree(config, matrices: Sequence[torch.Tensor], embedding: torch.Tensor,
+                dtype=torch.bfloat16, device="cpu") -> Params:
+    """DeepSeek-V2's serving tree of its matrices, in ``latent_layout``'s
+    order, and its embedding (V, D); every norm 1."""
+    def ones(n=config.dim):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    layers = [{"attention": {"kv_norm": ones(config.kv_lora_rank)}, "attention_norm": ones(),
+               "ffn_norm": ones()} for _ in range(config.n_layers)]
+    tree = {"tok_embeddings": embedding, "layers": layers, "norm": ones()}
+    layout = latent_layout(config)
+    if len(matrices) != len(layout):
+        raise ValueError(f"DeepSeek-V2's tree takes {len(layout)} matrices, not {len(matrices)}")
+    for (path, _), w in zip(layout, matrices):
+        node = tree
+        for key in path[:-1]:
+            node = node[key] if isinstance(key, int) else node.setdefault(key, {})
+        node[path[-1]] = w
+    return tree
 
 
 def init_params_quantized(
@@ -276,7 +334,10 @@ def init_params_quantized(
 def quantize_params(params: Params, activations: bool = False) -> Params:
     """Per-output-channel int8 for every projection and the lm-head;
     embeddings and norms stay as they are. ``activations`` marks the
-    leaves for int8 x int8 products."""
+    leaves for int8 x int8 products. A DeepSeek-V2 tree is refused."""
+    if "wqkv_a" in params["layers"][0]["attention"]:
+        raise ValueError("quantize_params does not take the MLA/MoE configuration "
+                         "(DeepseekV2Config): it serves the LLaMA block only")
 
     def quant(w):
         q, s = quantize_weight(w)
@@ -352,7 +413,11 @@ def init_cache(
     + ``spare`` (speculative decoding's spare tail); ``quantized``:
     {"q": (B, KV, T, hd) int8, "s": (B, KV, T) f32} leaves instead, half
     the cache bytes of bf16. Under tensor parallelism, this rank's kv
-    heads only."""
+    heads only. A ``DeepseekV2Config`` gets its latent cache (``mla.py``)."""
+    if is_latent(config):
+        if quantized:
+            refuse_latent(config, "the int8 KV cache")
+        return mla.init_cache(config, batch, dtype, device, spare)
     shape = (batch, config.kv_heads // config.tp_size, config.max_seq_len + spare,
              config.head_dim)
 
@@ -410,36 +475,13 @@ def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def _dense(x: torch.Tensor, leaf, group=None) -> torch.Tensor:
-    """x (..., K) times a projection leaf, f32 out: a plain tensor through
-    ``mm_f32``, an int8 leaf through K4, an int8 leaf marked ``act``
-    through ``quantize_activations`` and K5. ``group``: the tp group a
-    row-parallel leaf's K is split over; the f32 partial products are
-    summed there, and an ``act`` leaf's per-token amax is the group's max."""
-    if not is_quantized(leaf):
-        y = mm_f32(x, leaf)
-    else:
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        if "act" in leaf:
-            amax = None
-            if group is not None:
-                amax = x2.float().abs().amax(dim=-1, keepdim=True)
-                dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
-            xq, xs = quantize_activations(x2, amax)
-            y = int8xint8_matmul(xq, xs, leaf["q"], leaf["s"])
-        else:
-            y = int8_matmul(x2, leaf["q"], leaf["s"])
-        y = y.reshape(*lead, y.shape[-1])
-    if group is not None:
-        dist.all_reduce(y, group=group)
-    return y
-
-
 # ---- building blocks ----
 
 def precompute_rope(config: LlamaConfig, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (2 * max_seq_len, head_dim // 2), f32."""
+    """cos/sin tables (2 * max_seq_len, head_dim // 2), f32; for a
+    ``DeepseekV2Config`` YaRN's over its rotary part (``mla.yarn_tables``)."""
+    if is_latent(config):
+        return mla.yarn_tables(config, device)
     hd = config.head_dim
     inv_freq = 1.0 / (
         config.rope_theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd)
@@ -447,18 +489,6 @@ def precompute_rope(config: LlamaConfig, device="cpu") -> Tuple[torch.Tensor, to
     t = torch.arange(2 * config.max_seq_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
     return torch.cos(freqs), torch.sin(freqs)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate adjacent pairs. x: (B, S, H, hd); cos/sin: (S, hd/2), or
-    (B, S, hd/2) per-row tables (per-row positions)."""
-    B, S, H, hd = x.shape
-    xf = x.float().reshape(B, S, H, hd // 2, 2)
-    x0, x1 = xf[..., 0], xf[..., 1]
-    c = cos[:, :, None, :] if cos.ndim == 3 else cos[None, :, None, :]
-    s = sin[:, :, None, :] if sin.ndim == 3 else sin[None, :, None, :]
-    out = torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1)
-    return out.reshape(B, S, H, hd).to(x.dtype)
 
 
 def _project_qkv(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -621,23 +651,6 @@ def _cache_index(start_pos, B: int, S: int, KV: int, T: int, device):
     return where, k_pos <= start_pos + steps[:, None]
 
 
-def _feed_forward(p: Params, x: torch.Tensor, gates: FusionGates, group=None) -> torch.Tensor:
-    """silu(x.w1) * (x.w3) cast to x's dtype, then .w2, in x's dtype.
-    Decode rows with bf16 weights in the fused layout run the K7 wrapper.
-    ``group``: the tp group w2's rows are split over."""
-    if "w13" in p:
-        if not is_quantized(p["w13"]) and x.shape[1] == 1 and gates.ffn:
-            B, S, D = x.shape
-            return fused_ffn(x.reshape(B * S, D), p["w13"], p["w2"]).reshape(B, S, D).to(x.dtype)
-        g13 = _dense(x, p["w13"])
-        F = g13.shape[-1] // 2
-        gate, up = g13[..., :F], g13[..., F:]
-    else:
-        gate, up = _dense(x, p["w1"]), _dense(x, p["w3"])
-    act = (torch.nn.functional.silu(gate) * up).to(x.dtype)
-    return _dense(act, p["w2"], group).to(x.dtype)
-
-
 def _ffn_sublayer(
     layer: Params, h: torch.Tensor, config: LlamaConfig, gates: FusionGates
 ) -> torch.Tensor:
@@ -667,6 +680,7 @@ def forward(
     cache: Cache,
     config: LlamaConfig,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    moe_counts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Decoder forward. Returns (f32 logits (B, S, V), the cache, updated
     in place).
@@ -682,7 +696,12 @@ def forward(
 
     Under tensor parallelism (a ``TensorParallelConfig``) ``params`` are this
     rank's blocks and ``cache`` its kv heads; the logits come back whole
-    on every rank."""
+    on every rank.
+
+    A ``DeepseekV2Config`` runs MLA over its latent cache in every layer,
+    then the dense FFN sub-layer or DeepSeekMoE; ``moe_counts`` (n_moe_layers,
+    n_routed_experts) int32, where given, receives each MoE layer's expert
+    offsets (``moe.routed_experts``)."""
     if rope is None:
         rope = precompute_rope(config, device=tokens.device)
     cos_full, sin_full = rope
@@ -718,6 +737,9 @@ def forward(
         valid = torch.full((B,), start_pos + 1, dtype=torch.int32, device=tokens.device)
         if gates.cache_upd:
             pos = torch.full((B,), start_pos, dtype=torch.int32, device=tokens.device)
+    if is_latent(config):
+        return _latent_layers(params, h, start_pos, cache, config, gates, where, mask, valid,
+                              cos, sin, T, moe_counts), cache
     for i, layer in enumerate(params["layers"]):
         h = _attention(
             layer["attention"], h, layer["attention_norm"], where, mask, cos, sin,
@@ -736,3 +758,21 @@ def forward(
     if _split(_cols(out_w), V, config):  # the vocabulary's blocks
         logits = _all_gather(logits, -1, tp)
     return logits, cache
+
+
+def _latent_layers(params, h, start_pos, cache, config, gates, where, mask, valid, cos, sin,
+                   T: int, moe_counts) -> torch.Tensor:
+    """DeepSeek-V2's layers and head: f32 logits (B, S, V)."""
+    S = h.shape[1]
+    mask, keys = mla.attention_mask(start_pos, S, T, mask, valid)
+    j = 0
+    for i, layer in enumerate(params["layers"]):
+        h = mla.attention(layer["attention"], h, layer["attention_norm"], where, mask, keys,
+                          cos, sin, cache["k"][i], cache["v"][i], config)
+        if "moe" in layer:
+            h = moe.sublayer(layer, h, config, gates,
+                             None if moe_counts is None else moe_counts[j])
+            j += 1
+        else:
+            h = _ffn_sublayer(layer, h, config, gates)
+    return _dense(rms_norm(h, params["norm"], config.norm_eps), params["output"])

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from prego_tpu_torch.core.seed import make_generator
-from prego_tpu_torch.models.llama.config import LlamaConfig
+from prego_tpu_torch.models.llama.config import LlamaConfig, refuse_latent
 from prego_tpu_torch.models.llama.model import Cache, Params, forward
 from prego_tpu_torch.ops.sampling import categorical, processed_probs
 
@@ -165,6 +165,7 @@ class SpeculativeLlama:
         k: int = 4,
         pad_to_multiple: int = 64,
     ):
+        refuse_latent(target.config, "speculative decoding (spec_k)")
         if draft_config is not None:
             if draft_config.vocab_size != target.config.vocab_size:
                 raise ValueError("draft and target must share a vocabulary")

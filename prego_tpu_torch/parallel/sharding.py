@@ -35,7 +35,7 @@ from typing import Any, Dict
 
 import torch
 
-from prego_tpu_torch.models.llama.config import LlamaConfig, TensorParallelConfig
+from prego_tpu_torch.models.llama.config import LlamaConfig, TensorParallelConfig, refuse_latent
 from prego_tpu_torch.parallel.mesh import Mesh, PartitionSpec as P, local_block
 
 
@@ -156,7 +156,8 @@ def llama_tp_config(config: LlamaConfig, mesh: Mesh, tp_axis: str = "tp") -> Lla
     unfused tree over ``mesh``'s ``tp_axis``: ``forward``, ``init_cache``,
     ``Llama``, the cb server and speculative decoding then run on the
     rank's heads and slices with the collectives over that group. Raises
-    where tp does not divide the heads."""
+    where tp does not divide the heads, and for DeepSeek-V2's config."""
+    refuse_latent(config, "tensor-parallel serving (tp)")
     check_tp_heads(config, mesh.shape[tp_axis])
     fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(LlamaConfig)}
     return TensorParallelConfig(**{**fields, "tp_serving": True}, tp_group=mesh.group(tp_axis))

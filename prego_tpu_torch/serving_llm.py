@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from prego_tpu_torch.core.seed import make_generator
-from prego_tpu_torch.models.llama.config import LlamaConfig
+from prego_tpu_torch.models.llama.config import LlamaConfig, refuse_latent
 from prego_tpu_torch.models.llama.model import Cache, Params, clone_cache, forward, init_cache
 from prego_tpu_torch.ops.sampling import sample_next_token
 
@@ -269,6 +269,7 @@ class ContinuousBatcher:
         overlap_fetch: Optional[bool] = None,
         piggyback_max_suffix: Optional[int] = None,
     ):
+        refuse_latent(llama.config, "continuous batching (serving='cb')")
         self.llama = llama
         self.config: LlamaConfig = llama.config
         self.params: Params = llama.params
