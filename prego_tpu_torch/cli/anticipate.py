@@ -239,6 +239,36 @@ def make_llm(args: argparse.Namespace):
     return build_llm(args.llm, **llm_kwargs(args))
 
 
+def prefix_cache_line(llm) -> Optional[str]:
+    """The run's closing "prefix cache:" line of a torch-llama ``llm``'s
+    counters, else None. A healthy run rebuilds ~once per context, not per
+    video or step; per-row calls decode ragged prompts each from its own
+    end, so prompt-tail steps stay 0, and on the card replay their steps
+    from captured graphs (one capture a batch size and cache length)."""
+    if not hasattr(llm, "llama"):
+        return None
+    from prego_tpu_torch.models.llama.config import is_latent
+
+    lm = llm.llama
+    line = (f"prefix cache: rebuilds={lm.prefix_rebuilds} extends={lm.prefix_extends} "
+            f"tokens_reused={lm.prefix_tokens_reused} "
+            f"suffix_tokens_prefilled={lm.suffix_tokens_prefilled} "
+            f"prompt_tail_steps={lm.prompt_tail_steps} per_row_calls={lm.per_row_calls} "
+            f"decode_steps={lm.decode_steps} graph_captures={lm.decode_graph_captures} "
+            f"graph_replays={lm.decode_graph_replays}")
+    if is_latent(lm.config):  # DeepSeek-V2: the routed experts' counters
+        line += (f"; moe: assignments={lm.moe_assignments} "
+                 f"expert_hits={lm.moe_expert_hits} rows_max={lm.moe_rows_max}")
+    cb = getattr(llm, "_cb", None)
+    if cb is not None:  # --serving cb: the slots' own counts
+        st = cb.stats
+        line += (f"; cb: tokens_reused={st.prefix_tokens_reused} "
+                 f"suffix_tokens_prefilled={st.suffix_tokens_prefilled} "
+                 f"suffix_tokens_piggybacked={st.suffix_tokens_piggybacked} "
+                 f"decode_steps={st.decode_steps} utilization={st.utilization:.3f}")
+    return line
+
+
 def run(args: argparse.Namespace, llm=None):
     """Anticipate every sequence, report the metrics and save the results;
     ``llm`` defaults to the one the flags select, built after the flags
@@ -283,28 +313,8 @@ def run(args: argparse.Namespace, llm=None):
         checkpoint_every=args.checkpoint_every,
     )
 
-    if hasattr(llm, "llama"):
-        # prefix-cache observability: a healthy run rebuilds ~once per
-        # context, not per video or step; per-row calls decode ragged
-        # prompts each from its own end, so prompt-tail steps stay 0
-        from prego_tpu_torch.models.llama.config import is_latent
-
-        lm = llm.llama
-        line = (f"prefix cache: rebuilds={lm.prefix_rebuilds} extends={lm.prefix_extends} "
-                f"tokens_reused={lm.prefix_tokens_reused} "
-                f"suffix_tokens_prefilled={lm.suffix_tokens_prefilled} "
-                f"prompt_tail_steps={lm.prompt_tail_steps} per_row_calls={lm.per_row_calls} "
-                f"decode_steps={lm.decode_steps}")
-        if is_latent(lm.config):  # DeepSeek-V2: the routed experts' counters
-            line += (f"; moe: assignments={lm.moe_assignments} "
-                     f"expert_hits={lm.moe_expert_hits} rows_max={lm.moe_rows_max}")
-        cb = getattr(llm, "_cb", None)
-        if cb is not None:  # --serving cb: the slots' own counts
-            st = cb.stats
-            line += (f"; cb: tokens_reused={st.prefix_tokens_reused} "
-                     f"suffix_tokens_prefilled={st.suffix_tokens_prefilled} "
-                     f"suffix_tokens_piggybacked={st.suffix_tokens_piggybacked} "
-                     f"decode_steps={st.decode_steps} utilization={st.utilization:.3f}")
+    line = prefix_cache_line(llm)
+    if line is not None:
         logger.info(line)
         spec = getattr(llm, "_spec", None)
         if spec is not None and spec.drafts_proposed:

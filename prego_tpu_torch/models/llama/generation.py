@@ -30,15 +30,35 @@ prefix through an LRU of B=1 prefix caches, as in the JAX package. With
 ``kv_quant`` every cache, the fresh ones and those of the prefix LRU, is
 the int8 cache of ``init_cache(quantized=True)``.
 
+Every call decodes over the first B rows of one persistent cache of
+``max_batch_size`` rows and max_seq_len + 1 positions (``load_rows``: a
+call that needs the spare tail views all of it, every other call the
+first max_seq_len positions of the same memory), which the call loads
+with the prefix (or zeroes) and its prefill writes. On the card, a call
+at per-row positions without a tp group (``replays_decode``) replays its
+single-token forward from a captured CUDA graph over those rows, so a
+step costs the host a few launches, not one a kernel. One graph a (B, T,
+``fusion_gates()``), made when a call first meets that key: its step 0
+runs eagerly, then the forward is captured and steps 1 on replay it. The
+graphs share one memory pool and replay in stream order on the current
+stream. The sampler, the eos flags and the token buffer stay eager, so
+the sampler's stream of draws is the eager loop's, and so are the bits:
+the same kernels run in the same order. Every other call, and the CPU,
+runs every step eagerly.
+
 Spans (``core/profiling.annotate``, recorded only under a profiler):
 ``prego.generate.prefix`` where a prefix entry is built or extended,
 ``prego.generate.prefill`` the prompt or suffix forward,
-``prego.generate.step`` each decode step, ``prego.generate.readback``
-the call's one read of the tokens. Counters (host integers, from lengths
-the host holds): ``prefix_rebuilds``, ``prefix_extends``,
-``decode_steps``, ``prefix_tokens_reused``, ``suffix_tokens_prefilled``,
-``per_row_calls``, and ``prompt_tail_steps``, which stays 0: no step
-feeds a prompt token, so no ``prego.generate.tail_step`` span opens.
+``prego.generate.step`` each decode step (under replay the host's
+enqueueing of the step, not its device time), ``prego.generate.capture``
+inside the step that captures a graph, ``prego.generate.readback`` the
+call's one read of the tokens. Counters (host integers, from lengths the
+host holds): ``prefix_rebuilds``, ``prefix_extends``, ``decode_steps``,
+``decode_graph_captures``, ``decode_graph_replays`` (the steps of
+``decode_steps`` that replayed a graph), ``prefix_tokens_reused``,
+``suffix_tokens_prefilled``, ``per_row_calls``, and
+``prompt_tail_steps``, which stays 0: no step feeds a prompt token, so no
+``prego.generate.tail_step`` span opens.
 
 DeepSeek-V2 (a ``DeepseekV2Config``) is served by the same code over its
 latent cache. Its MoE counters: every forward of a call (prefix builds,
@@ -68,9 +88,12 @@ from prego_tpu_torch.models.llama.model import (
     Params,
     clone_cache,
     forward,
+    fusion_gates,
     init_cache,
+    load_rows,
     precompute_rope,
 )
+from prego_tpu_torch.ops._cuda import CudaKernel
 from prego_tpu_torch.ops.sampling import sample_next_token
 
 
@@ -83,6 +106,62 @@ UNSAFE_ERROR = "Error: special tags are not allowed as part of the prompt."
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def replays_decode(device: torch.device, per_row: bool, config: LlamaConfig) -> bool:
+    """Whether a call replays its single-token forward from a captured CUDA
+    graph over its rows of the persistent cache: on the card, at per-row
+    positions (a scalar position is a Python int that slices the rope and
+    the cache, and may pick K8 or K8u), without a tp group (whose
+    collectives stay eager). Every other call runs every step eagerly."""
+    return device.type == "cuda" and per_row and getattr(config, "tp_group", None) is None
+
+
+class _DecodeGraph:
+    """One captured single-token ``forward`` over fixed rows of a
+    persistent cache: static inputs, the (B, 1) tokens, the (B,) int32
+    positions and, for DeepSeek-V2, the (MoE layers, experts) int32
+    counters, and the static output, f32 logits (B, 1, V). A kernel
+    wrapper counts its launch when the capture records it, and a replay
+    launches without the wrapper: the capture's counts are taken back and
+    added again on every replay, so ``CudaKernel.launches`` counts the
+    launches the card makes."""
+
+    def __init__(self, llama: "Llama", cache: Cache, batch: int):
+        dev = llama.device
+        self.tokens = torch.zeros(batch, 1, dtype=torch.int64, device=dev)
+        self.positions = torch.zeros(batch, dtype=torch.int32, device=dev)
+        offsets = llama._moe_offsets
+        self.counts = None if offsets is None else torch.zeros_like(offsets[0])
+        self.graph = torch.cuda.CUDAGraph()
+        # captured on a side stream (the default stream cannot capture),
+        # into the pool every graph of this model shares
+        stream, pool = llama._capture_target()
+        before = {k: k.launches for k in CudaKernel.instances}
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            self.logits, _ = forward(llama.params, self.tokens, self.positions, cache,
+                                     llama.config, llama.rope, self.counts)
+            self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.launches = [(k, k.launches - before.get(k, 0)) for k in CudaKernel.instances
+                         if k.launches > before.get(k, 0)]
+        for k, n in self.launches:  # the capture ran nothing
+            k.launches -= n
+
+    def replay(self, tokens: torch.Tensor, positions: torch.Tensor,
+               counts: Optional[torch.Tensor]) -> torch.Tensor:
+        """The logits of one step, replayed on the current stream; the
+        step's MoE counters go to ``counts``."""
+        self.tokens.copy_(tokens)
+        self.positions.copy_(positions)
+        self.graph.replay()
+        for k, n in self.launches:
+            k.launches += n
+        if counts is not None:
+            counts.copy_(self.counts)
+        return self.logits
 
 
 class Llama:
@@ -131,6 +210,13 @@ class Llama:
         # every row starts at its own prompt end (kept for its readers)
         self.prompt_tail_steps = 0
         self.per_row_calls = 0  # calls decoded at per-row positions (ragged prompts)
+        self.decode_graph_captures = 0  # single-token forwards captured as CUDA graphs
+        self.decode_graph_replays = 0  # decode steps run by replaying one
+        # the cache of max_batch_size rows every call decodes over, made on first use
+        self._decode_cache: Optional[Cache] = None
+        # (B, T, fusion_gates()) -> its captured step over the first B rows
+        self._decode_graphs: Dict[Tuple, _DecodeGraph] = {}
+        self._capture: Optional[Tuple] = None  # (side stream, pool), made on first use
         self.moe_assignments = self.moe_expert_hits = self.moe_rows_max = 0
         self.moe_last_counts: Optional[np.ndarray] = None  # (forwards, MoE layers, experts)
         self._moe_offsets: Optional[torch.Tensor] = None
@@ -170,6 +256,21 @@ class Llama:
         max_seq_len for speculative decoding (``speculative.py``)."""
         return init_cache(self.config, batch, dtype=self.dtype, device=self.device,
                           quantized=self.kv_quant, spare=spare)
+
+    def _capture_target(self) -> Tuple:
+        """The side stream this model's graphs are captured on, and the
+        memory pool they share."""
+        if self._capture is None:
+            self._capture = (torch.cuda.Stream(self.device), torch.cuda.graph_pool_handle())
+        return self._capture
+
+    def _decode_rows(self, batch: int, spare: int, prefix: Optional[Cache]) -> Cache:
+        """A call's cache of ``batch`` rows and T = max_seq_len + ``spare``
+        positions in the persistent cache's memory, loaded with ``prefix``
+        (or zeroed)."""
+        if self._decode_cache is None:
+            self._decode_cache = self._new_cache(self.config.max_batch_size, spare=1)
+        return load_rows(self._decode_cache, batch, self.config.max_seq_len + spare, prefix)
 
     # -- the decode loop --
 
@@ -212,8 +313,10 @@ class Llama:
         steps = min(max_gen_len, room - min_len)  # the shortest row's tokens
         per_row = min_len != max_len
         spare = int(max_len + steps > room)  # a row runs out of cache before the loop ends
-        cache = (self._new_cache(B, spare=spare) if prefix is None
-                 else clone_cache(prefix, batch=B, spare=spare))
+        cache = self._decode_rows(B, spare, prefix)
+        graphs = replays_decode(dev, per_row, config)
+        key = (B, config.max_seq_len + spare, fusion_gates())
+        graph = self._decode_graphs.get(key) if graphs else None
         tokens = torch.from_numpy(buf).to(dev)
         with annotate("prego.generate.prefill"):
             prefill_logits, cache = forward(
@@ -253,10 +356,18 @@ class Llama:
                     gen_lp[:, t] = torch.gather(lp_t, -1, next_token[:, None].clamp(min=0))[:, 0]
                 eos_reached |= next_token == eos_id
                 pos = positions[t] if per_row else start_offset + min_len + t
-                logits, cache = forward(
-                    self.params, next_token[:, None], pos, cache, config, self.rope,
-                    self._moe_slot()
-                )
+                if graph is not None:
+                    logits = graph.replay(next_token[:, None], pos, self._moe_slot())
+                    self.decode_graph_replays += 1
+                else:
+                    logits, cache = forward(
+                        self.params, next_token[:, None], pos, cache, config, self.rope,
+                        self._moe_slot()
+                    )
+                    if graphs:  # a new key: this eager step was its warm-up
+                        with annotate("prego.generate.capture"):
+                            graph = self._decode_graphs[key] = _DecodeGraph(self, cache, B)
+                        self.decode_graph_captures += 1
                 self.decode_steps += 1
                 last_logits = logits[:, 0]
                 # the all-rows-done check before every EOS_CHECK_EVERY-th next

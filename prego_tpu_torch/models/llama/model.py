@@ -110,6 +110,7 @@ draws the same tokens on every rank.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -138,7 +139,8 @@ Cache = Dict[str, List[Any]]
 
 __all__ = [
     "init_params", "init_params_quantized", "quantize_params", "fuse_projections",
-    "init_cache", "clone_cache", "rms_norm", "precompute_rope", "apply_rope", "forward",
+    "init_cache", "clone_cache", "load_rows", "rms_norm", "precompute_rope", "apply_rope",
+    "forward",
 ]
 
 
@@ -430,20 +432,40 @@ def init_cache(
     return {key: [leaf() for _ in range(config.n_layers)] for key in ("k", "v")}
 
 
-def clone_cache(cache: Cache, batch: Optional[int] = None, spare: int = 0) -> Cache:
+def clone_cache(cache: Cache, batch: Optional[int] = None) -> Cache:
     """A copy of ``cache``; with ``batch``, its B=1 rows repeated to that
-    batch; with ``spare``, that many zero positions appended to its T axis
-    (``init_cache``'s spare tail)."""
+    batch."""
 
     def copy(t):
         if isinstance(t, dict):
             return {k: copy(v) for k, v in t.items()}
-        t = t.clone() if batch is None else t.repeat(batch, *([1] * (t.ndim - 1)))
-        if spare:
-            t = torch.cat([t, t.new_zeros(t.shape[:2] + (spare,) + t.shape[3:])], dim=2)
-        return t
+        return t.clone() if batch is None else t.repeat(batch, *([1] * (t.ndim - 1)))
 
     return {key: [copy(t) for t in cache[key]] for key in ("k", "v")}
+
+
+def load_rows(cache: Cache, batch: int, length: int, prefix: Optional[Cache] = None) -> Cache:
+    """The cache of ``batch`` rows and ``length`` positions that starts each
+    leaf's memory in ``cache`` (a store of at least that many rows and
+    positions), loaded in place: ``prefix``'s B=1 row broadcast over its
+    positions and zeros past them, or zeros where ``prefix`` is None. Every
+    position a row can read is rewritten, and a call of the same ``batch``
+    and ``length`` finds the same addresses as the one before it."""
+
+    def rows(dst, src):
+        if isinstance(dst, dict):
+            return {k: rows(dst[k], None if src is None else src[k]) for k in dst}
+        shape = (batch, dst.shape[1], length, *dst.shape[3:])
+        out = dst.view(-1)[: math.prod(shape)].view(shape)
+        n = 0 if src is None else src.shape[2]
+        if n:
+            out[:, :, :n].copy_(src.expand(batch, *src.shape[1:]))
+        out[:, :, n:].zero_()
+        return out
+
+    srcs = prefix or {key: [None] * len(cache[key]) for key in ("k", "v")}
+    return {key: [rows(dst, src) for dst, src in zip(cache[key], srcs[key])]
+            for key in ("k", "v")}
 
 
 def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

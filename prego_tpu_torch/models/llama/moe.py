@@ -14,7 +14,8 @@ decode). The weighted sum of the routed experts is f32, as in HF's
 The routed experts run as grouped products on the device: the (token,
 expert) pairs sorted by expert, the offsets of each expert's rows found
 by a search over the sorted ids, then w13 and w2 as one grouped GEMM each
-over the experts' rows (``torch._grouped_mm`` on the card). Nothing reads
+over the experts' rows (``torch._grouped_mm`` on the card), and each
+token's k weighted rows summed in its top-k order. Nothing reads
 the device from the host and no Python loop runs over experts; on the CPU
 ``grouped_swiglu`` runs its plain version, a loop over the experts.
 
@@ -112,7 +113,10 @@ def routed_experts(x: torch.Tensor, p: Params, config: DeepseekV2Config,
     tok = order // k
     ys = grouped_swiglu(x[tok], p["w13"], p["w2"], offs)
     ys = ys.float() * w.reshape(-1)[order, None]
-    return torch.zeros(N, D, dtype=torch.float32, device=x.device).index_add_(0, tok, ys)
+    # each row back to its (token, top-k) slot, the k slots summed in that
+    # order: index_add_ on the card adds by atomics in no fixed order, so a
+    # step would not give the same bits twice
+    return ys.new_empty(N * k, D).index_copy_(0, order, ys).view(N, k, D).sum(dim=1)
 
 
 def sublayer(layer: Params, h: torch.Tensor, config: DeepseekV2Config, gates,

@@ -49,7 +49,10 @@ def _nvcc() -> str:
 
 class CudaKernel:
     """One kernel library: its source, its C entry points, and the count of
-    launches the wrapper made through it (``launches``)."""
+    launches the wrapper made through it (``launches``). ``instances`` holds
+    every library made, so a caller can read all the counts."""
+
+    instances: List["CudaKernel"] = []
 
     def __init__(self, name: str, source: str, functions: Dict[str, Sequence]):
         self.name = name
@@ -58,6 +61,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._lib = None
+        CudaKernel.instances.append(self)
 
     def _sources(self) -> List[Path]:
         return [self.source, *sorted(CSRC.glob("*.cuh"))]  # any header may be included

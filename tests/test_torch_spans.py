@@ -25,6 +25,7 @@ from prego_tpu_torch.serving_llm import ContinuousBatcher, ServeStats
 
 PREFIX, PREFILL = "prego.generate.prefix", "prego.generate.prefill"
 TAIL, STEP, READBACK = "prego.generate.tail_step", "prego.generate.step", "prego.generate.readback"
+CAPTURE = "prego.generate.capture"
 RECOGNIZE, ANTICIPATE = "prego.online.recognize", "prego.online.anticipate"
 RAW = {"rgb_type": "rgb_kinetics_bninception", "flow_type": "flow_anet_resnet50",
        "embedding_dim": 32, "hidden_dim": 16, "num_layers": 1, "num_classes": 5,
@@ -92,6 +93,19 @@ def test_generate_spans_in_order_and_counted(params, tmp_path, path):
     assert lm.prompt_tail_steps == 0 and lm.per_row_calls == 1
     assert lm.suffix_tokens_prefilled == sum(lens)
     assert lm.prefix_tokens_reused == len(prompts) * eff
+
+
+@pytest.mark.parametrize("path", ["prefix", "plain"])
+def test_cpu_call_opens_no_capture_span(params, tmp_path, path):
+    """A per-row call on the CPU runs every step eagerly: no
+    ``prego.generate.capture`` span, no capture and no replay counted (on
+    the card a new key opens exactly one: tests/test_torch_decode_graph.py)."""
+    lm = _llama(params)
+    with profiling.trace(str(tmp_path)) as prof:
+        _run(lm, path, _prompts())
+    assert CAPTURE not in _spans(prof) and STEP in _spans(prof)
+    assert lm.per_row_calls == 1
+    assert (lm.decode_graph_captures, lm.decode_graph_replays) == (0, 0)
 
 
 def test_prefix_span_opens_only_on_a_miss_or_an_extension(params, tmp_path):
