@@ -243,8 +243,8 @@ def prefix_cache_line(llm) -> Optional[str]:
     """The run's closing "prefix cache:" line of a torch-llama ``llm``'s
     counters, else None. A healthy run rebuilds ~once per context, not per
     video or step; per-row calls decode ragged prompts each from its own
-    end, so prompt-tail steps stay 0, and on the card replay their steps
-    from captured graphs (one capture a batch size and cache length)."""
+    end, and on the card replay their steps from captured graphs (one
+    capture a batch size and cache length)."""
     if not hasattr(llm, "llama"):
         return None
     from prego_tpu_torch.models.llama.config import is_latent
@@ -253,7 +253,7 @@ def prefix_cache_line(llm) -> Optional[str]:
     line = (f"prefix cache: rebuilds={lm.prefix_rebuilds} extends={lm.prefix_extends} "
             f"tokens_reused={lm.prefix_tokens_reused} "
             f"suffix_tokens_prefilled={lm.suffix_tokens_prefilled} "
-            f"prompt_tail_steps={lm.prompt_tail_steps} per_row_calls={lm.per_row_calls} "
+            f"per_row_calls={lm.per_row_calls} "
             f"decode_steps={lm.decode_steps} graph_captures={lm.decode_graph_captures} "
             f"graph_replays={lm.decode_graph_replays}")
     if is_latent(lm.config):  # DeepSeek-V2: the routed experts' counters

@@ -56,9 +56,14 @@ call's one read of the tokens. Counters (host integers, from lengths the
 host holds): ``prefix_rebuilds``, ``prefix_extends``, ``decode_steps``,
 ``decode_graph_captures``, ``decode_graph_replays`` (the steps of
 ``decode_steps`` that replayed a graph), ``prefix_tokens_reused``,
-``suffix_tokens_prefilled``, ``per_row_calls``, and
-``prompt_tail_steps``, which stays 0: no step feeds a prompt token, so no
-``prego.generate.tail_step`` span opens.
+``suffix_tokens_prefilled`` and ``per_row_calls``. No step feeds a prompt
+token, so no ``prego.generate.tail_step`` span opens.
+
+``Llama`` owns the prefix cache and the request front for every loop that
+serves it (this one, ``speculative.py`` and ``serving_llm.py``): the
+shared-prefix rule (``shared_prefix``, ``aligned_prefix``), the LRU
+(``ensure_prefix``, ``lookup_prefix``), and the module's ``split_batch``,
+``cut_row`` and ``round_up``.
 
 DeepSeek-V2 (a ``DeepseekV2Config``) is served by the same code over its
 latent cache. Its MoE counters: every forward of a call (prefix builds,
@@ -75,7 +80,7 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,8 +109,26 @@ SPECIAL_TAGS = [B_INST, E_INST, "<<SYS>>", "<</SYS>>"]
 UNSAFE_ERROR = "Error: special tags are not allowed as part of the prompt."
 
 
-def _round_up(x: int, m: int) -> int:
+def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def split_batch(rows: Sequence, size: int) -> List[Sequence]:
+    """``rows`` in consecutive slices of at most ``size``: a batch over
+    max_batch_size runs as several (the reference asserts,
+    generation.py:160)."""
+    return [rows[i : i + size] for i in range(0, len(rows), size)]
+
+
+def cut_row(toks: List[int], pad_id: int, eos_id: int,
+            probs: Optional[List[float]] = None) -> Tuple[List[int], Optional[List[float]]]:
+    """The host cut of a generated row: at its first pad (padding or the
+    fill after eos), then at its first eos; ``probs``, where given, with it."""
+    for stop in (pad_id, eos_id):
+        if stop in toks:
+            n = toks.index(stop)
+            toks, probs = toks[:n], None if probs is None else probs[:n]
+    return toks, probs
 
 
 def replays_decode(device: torch.device, per_row: bool, config: LlamaConfig) -> bool:
@@ -206,9 +229,6 @@ class Llama:
         self.prefix_tokens_reused = 0
         # prompt tokens of the rows through the prompt or suffix forward (ServeStats' name)
         self.suffix_tokens_prefilled = 0
-        # decode steps in which some row fed its own prompt token: none, since
-        # every row starts at its own prompt end (kept for its readers)
-        self.prompt_tail_steps = 0
         self.per_row_calls = 0  # calls decoded at per-row positions (ragged prompts)
         self.decode_graph_captures = 0  # single-token forwards captured as CUDA graphs
         self.decode_graph_replays = 0  # decode steps run by replaying one
@@ -303,7 +323,7 @@ class Llama:
         min_len, max_len = min(lens), max(lens)
         room = config.max_seq_len - start_offset  # cache positions past the offset
         total_len = min(room, max_gen_len + max_len)
-        buf_len = min(_round_up(total_len, self.pad_to_multiple), room)
+        buf_len = min(round_up(total_len, self.pad_to_multiple), room)
         buf = np.full((B, buf_len), pad_id, np.int64)
         for i, p in enumerate(prompts):
             buf[i, : len(p)] = np.asarray(p, np.int64)
@@ -404,24 +424,15 @@ class Llama:
         logprobs: bool = False,
     ) -> Tuple[List[List[int]], Optional[List[List[float]]]]:
         config = self.config
-        bsz = len(prompt_tokens)
-        if bsz > config.max_batch_size:
-            # split oversized batches (the reference asserts, generation.py:160)
-            out: List[List[int]] = []
-            out_lp: List[List[float]] = []
-            for i in range(0, bsz, config.max_batch_size):
-                toks, lps = self.generate(
-                    prompt_tokens[i : i + config.max_batch_size],
-                    max_gen_len, temperature, top_p, echo, logprobs,
-                )
-                out.extend(toks)
-                if logprobs:
-                    out_lp.extend(lps)
-            return out, (out_lp if logprobs else None)
+        parts = split_batch(prompt_tokens, config.max_batch_size)
+        if len(parts) > 1:
+            runs = [self.generate(p, max_gen_len, temperature, top_p, echo, logprobs)
+                    for p in parts]
+            return ([t for toks, _ in runs for t in toks],
+                    [lp for _, lps in runs for lp in lps] if logprobs else None)
         max_prompt_len = max(len(t) for t in prompt_tokens)
         if max_prompt_len > config.max_seq_len:
             raise ValueError(f"prompt of {max_prompt_len} tokens exceeds max_seq_len")
-        pad_id = self.tokenizer.pad_id
         out, lp = self._generate_body(prompt_tokens, max_gen_len, None, 0, float(temperature),
                                       float(top_p), logprobs)
 
@@ -429,41 +440,67 @@ class Llama:
         for i, toks in enumerate(out.tolist()):
             start = 0 if echo else len(prompt_tokens[i])
             stop = len(prompt_tokens[i]) + max_gen_len
-            toks = toks[start:stop]
             probs = lp[i].tolist()[start:stop] if logprobs else []
-            if pad_id in toks:  # cut at pad (padding / post-eos fill), then at eos
-                cut = toks.index(pad_id)
-                toks, probs = toks[:cut], probs[:cut]
-            if self.tokenizer.eos_id in toks:
-                cut = toks.index(self.tokenizer.eos_id)
-                toks, probs = toks[:cut], probs[:cut]
+            toks, probs = cut_row(toks[start:stop], self.tokenizer.pad_id,
+                                  self.tokenizer.eos_id, probs)
             out_tokens.append(toks)
             out_logprobs.append(probs)
         return out_tokens, (out_logprobs if logprobs else None)
 
-    # -- prefix-cached generation --
+    # -- the prefix cache --
+
+    def aligned_prefix(self, n: int) -> int:
+        """``n`` rounded down to ``PREFIX_CHUNK``, the granularity of the
+        cached prefixes: 0 below one chunk."""
+        return (n // self.PREFIX_CHUNK) * self.PREFIX_CHUNK
+
+    def shared_prefix(self, prompt_tokens: Sequence[Sequence[int]]) -> int:
+        """The length of the batch's prefix that the LRU serves: the
+        prompts' longest common prefix, at least one token short of the
+        shortest prompt (the suffix prefill gives the first logits, and a
+        speculative verify re-feeds that token), rounded down to
+        ``PREFIX_CHUNK``; 0 below one chunk."""
+        first = prompt_tokens[0]
+        common = min(len(t) for t in prompt_tokens)
+        shared = 0
+        while shared < common - 1 and all(t[shared] == first[shared] for t in prompt_tokens):
+            shared += 1
+        return self.aligned_prefix(shared)
+
+    def lookup_prefix(self, tokens: Sequence[int], touch: bool = True
+                      ) -> Tuple[int, Optional[Cache]]:
+        """The longest LRU key that prefixes ``tokens`` (all of them
+        included), as (its length, its B=1 cache); (0, None) if none.
+        ``touch`` marks the entry most recently used."""
+        tokens = tuple(tokens)
+        best = None
+        for k in self._prefix_caches:
+            if len(k) <= len(tokens) and tokens[: len(k)] == k:
+                if best is None or len(k) > len(best):
+                    best = k
+        if best is None:
+            return 0, None
+        if touch:
+            self._prefix_caches.move_to_end(best)
+        return len(best), self._prefix_caches[best]
 
     @torch.no_grad()
-    def _ensure_prefix_cache(self, prefix: Tuple[int, ...]) -> Cache:
+    def ensure_prefix(self, prefix: Tuple[int, ...]) -> Cache:
+        """The LRU's B=1 cache of ``prefix``'s K/V, touched where it is held,
+        else built: from the longest cached entry that prefixes it (cloned,
+        so that entry stays valid; not touched) or from scratch, then
+        inserted, evicting the least recent past ``prefix_cache_slots``."""
         cached = self._prefix_caches.get(prefix)
         if cached is not None:
             self._prefix_caches.move_to_end(prefix)  # LRU touch
             return cached
-        # extend the longest cached proper prefix when there is one; its
-        # entry stays valid because the extension works on a clone
-        base_key = None
-        for k in self._prefix_caches:
-            if len(k) < len(prefix) and prefix[: len(k)] == k:
-                if base_key is None or len(k) > len(base_key):
-                    base_key = k
+        start, base = self.lookup_prefix(prefix, touch=False)
         with annotate("prego.generate.prefix"):
-            if base_key is not None:
-                cache = clone_cache(self._prefix_caches[base_key])
-                start = len(base_key)
+            if base is not None:
+                cache = clone_cache(base)
                 self.prefix_extends += 1
             else:
                 cache = self._new_cache(1)
-                start = 0
                 self.prefix_rebuilds += 1
             T = self.config.max_seq_len
             step = min(self.PREFIX_BUILD_CHUNK, T)
@@ -498,46 +535,25 @@ class Llama:
         """Generate completions reusing the KV of the batch-common prompt
         prefix; plain ``generate`` when that prefix is shorter than one
         PREFIX_CHUNK. Returns generated (non-echo) tokens."""
-        config = self.config
-        bsz = len(prompt_tokens)
-        if bsz > config.max_batch_size:
-            out: List[List[int]] = []
-            for i in range(0, bsz, config.max_batch_size):
-                out.extend(
-                    self.generate_with_prefix_cache(
-                        prompt_tokens[i : i + config.max_batch_size],
-                        max_gen_len, temperature, top_p,
-                    )
-                )
-            return out
-        if max(len(t) for t in prompt_tokens) > config.max_seq_len:
+        parts = split_batch(prompt_tokens, self.config.max_batch_size)
+        if len(parts) > 1:
+            return [t for p in parts
+                    for t in self.generate_with_prefix_cache(p, max_gen_len, temperature, top_p)]
+        if max(len(t) for t in prompt_tokens) > self.config.max_seq_len:
             raise ValueError("prompt exceeds max_seq_len")
-        common = min(len(t) for t in prompt_tokens)
-        first = prompt_tokens[0]
-        shared = 0
-        while shared < common and all(t[shared] == first[shared] for t in prompt_tokens):
-            shared += 1
-        # keep >= 1 prompt token in the suffix so prefill yields sampling logits
-        eff = (min(shared, common - 1) // self.PREFIX_CHUNK) * self.PREFIX_CHUNK
-        if eff < self.PREFIX_CHUNK:
+        eff = self.shared_prefix(prompt_tokens)
+        if not eff:
             return self.generate(prompt_tokens, max_gen_len, temperature, top_p)[0]
 
-        cache1 = self._ensure_prefix_cache(tuple(first[:eff]))
+        cache1 = self.ensure_prefix(tuple(prompt_tokens[0][:eff]))
         suffixes = [t[eff:] for t in prompt_tokens]
         # the B=1 prefix KV is copied to the batch; decode writes per row
-        self.prefix_tokens_reused += bsz * eff
+        self.prefix_tokens_reused += len(prompt_tokens) * eff
         out, _ = self._generate_body(suffixes, max_gen_len, cache1, eff, float(temperature),
                                      float(top_p), False)
-        pad_id = self.tokenizer.pad_id
-        out_tokens = []
-        for i, toks in enumerate(out.tolist()):
-            toks = toks[len(suffixes[i]) : len(suffixes[i]) + max_gen_len]
-            if pad_id in toks:
-                toks = toks[: toks.index(pad_id)]
-            if self.tokenizer.eos_id in toks:
-                toks = toks[: toks.index(self.tokenizer.eos_id)]
-            out_tokens.append(toks)
-        return out_tokens
+        return [cut_row(toks[len(s) : len(s) + max_gen_len], self.tokenizer.pad_id,
+                        self.tokenizer.eos_id)[0]
+                for s, toks in zip(suffixes, out.tolist())]
 
     # -- reference seam --
 

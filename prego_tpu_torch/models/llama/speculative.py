@@ -49,7 +49,8 @@ import torch
 
 from prego_tpu_torch.core.seed import make_generator
 from prego_tpu_torch.models.llama.config import LlamaConfig, refuse_latent
-from prego_tpu_torch.models.llama.model import Cache, Params, forward
+from prego_tpu_torch.models.llama.generation import Llama, cut_row, round_up, split_batch
+from prego_tpu_torch.models.llama.model import Cache, Params, forward, load_rows
 from prego_tpu_torch.ops.sampling import categorical, processed_probs
 
 
@@ -58,23 +59,6 @@ def _cache_spare(config: LlamaConfig, k: int) -> int:
     where max_seq_len is a multiple of 256 (the JAX package keeps its
     decode kernels' T blocks whole), else the k + 1 a verify writes."""
     return 256 if config.max_seq_len % 256 == 0 else k + 1
-
-
-def _batch_cache(llama, batch: int, spare: int, prefix: Optional[Cache] = None,
-                 upto: int = 0) -> Cache:
-    """A (batch, KV, max_seq_len + spare, hd) cache of ``llama``'s kind,
-    allocated once; with ``prefix``, a B=1 cache of the prefix LRU, its
-    first ``upto`` positions copied into every row (positions past them
-    are written before any query attends them)."""
-    cache = llama._new_cache(batch, spare=spare)
-    if prefix is not None:
-        for key in ("k", "v"):
-            for dst, src in zip(cache[key], prefix[key]):
-                pairs = ([(dst[n], src[n]) for n in ("q", "s")] if isinstance(dst, dict)
-                         else [(dst, src)])
-                for d, s in pairs:
-                    d[:, :, :upto].copy_(s[:, :, :upto])
-    return cache
 
 
 class _Spec:
@@ -192,8 +176,6 @@ class SpeculativeLlama:
         # follow the target's KV quantization
         self._draft_llama = None
         if draft_params is not None:
-            from prego_tpu_torch.models.llama.generation import Llama
-
             self._draft_llama = Llama(
                 draft_params, target.tokenizer, draft_config,
                 prefix_cache_slots=target.prefix_cache_slots, kv_quant=target.kv_quant,
@@ -297,15 +279,18 @@ class SpeculativeLlama:
     def _cut(self, out_buf, n_emitted, max_gen_len) -> List[List[int]]:
         """The host cut of ``Llama.generate``: the budget, then pad, then eos."""
         tok = self.target.tokenizer
-        results = []
-        for row, n in zip(out_buf.cpu().tolist(), n_emitted.cpu().tolist()):
-            toks = row[: min(int(n), max_gen_len)]
-            if tok.pad_id in toks:
-                toks = toks[: toks.index(tok.pad_id)]
-            if tok.eos_id in toks:
-                toks = toks[: toks.index(tok.eos_id)]
-            results.append(toks)
-        return results
+        return [cut_row(row[: min(int(n), max_gen_len)], tok.pad_id, tok.eos_id)[0]
+                for row, n in zip(out_buf.cpu().tolist(), n_emitted.cpu().tolist())]
+
+    def _rows(self, llama: Llama, batch: int, prefix: Optional[Cache] = None) -> Cache:
+        """A call's cache of ``llama``'s kind, ``batch`` rows and max_seq_len
+        + ``_cache_spare`` positions, loaded with its B=1 prefix entry, or
+        zeroes. Past the call's prefix the entry holds the pad K/V of its
+        last build chunk, or zeros: the suffix prefill, then each verify,
+        writes a position before any query attends it."""
+        spare = _cache_spare(llama.config, self.k)
+        return load_rows(llama._new_cache(batch, spare), batch, llama.config.max_seq_len + spare,
+                         prefix)
 
     def _spec(self, oracle, out_buf_len, temperature, top_p) -> _Spec:
         return _Spec(self.target, self._draft_llama if oracle is None else None, oracle,
@@ -332,24 +317,22 @@ class SpeculativeLlama:
                 raise ValueError("oracle replay is greedy-only")
             if len(oracle_tokens) != len(prompt_tokens):
                 raise ValueError("one oracle replay a prompt")
+        parts = split_batch(prompt_tokens, cfg.max_batch_size)
+        if len(parts) > 1:
+            oracles = ([None] * len(parts) if oracle_tokens is None
+                       else split_batch(oracle_tokens, cfg.max_batch_size))
+            return [t for p, o in zip(parts, oracles)
+                    for t in self.generate(p, max_gen_len, temperature, top_p, o)]
         bsz = len(prompt_tokens)
-        if bsz > cfg.max_batch_size:
-            out: List[List[int]] = []
-            for i in range(0, bsz, cfg.max_batch_size):
-                out.extend(self.generate(
-                    prompt_tokens[i : i + cfg.max_batch_size], max_gen_len, temperature, top_p,
-                    oracle_tokens[i : i + cfg.max_batch_size] if oracle_tokens is not None
-                    else None))
-            return out
         max_p = max(len(t) for t in prompt_tokens)
         if not 1 <= max_p <= cfg.max_seq_len:
             raise ValueError(f"prompt of {max_p} tokens outside [1, max_seq_len]")
         max_gen_len = min(max_gen_len, cfg.max_seq_len - max_p)
-        p_buf = min(_round_up(max_p, self.pad_to_multiple), cfg.max_seq_len)
+        p_buf = min(round_up(max_p, self.pad_to_multiple), cfg.max_seq_len)
         buf = np.full((bsz, p_buf), tok.pad_id, np.int64)
         for i, t in enumerate(prompt_tokens):
             buf[i, : len(t)] = t
-        out_buf_len = _round_up(max_gen_len + self.k + 1, self.pad_to_multiple)
+        out_buf_len = round_up(max_gen_len + self.k + 1, self.pad_to_multiple)
         dev = target.device
         oracle = None
         if oracle_tokens is not None:
@@ -358,9 +341,8 @@ class SpeculativeLlama:
                 o[i, : len(t)] = t
             oracle = torch.from_numpy(o).to(dev)
         spec = self._spec(oracle, out_buf_len, temperature, top_p)
-        t_cache = _batch_cache(target, bsz, _cache_spare(cfg, self.k))
-        d_cache = (None if oracle is not None else
-                   _batch_cache(self._draft_llama, bsz, _cache_spare(self.draft_config, self.k)))
+        t_cache = self._rows(target, bsz)
+        d_cache = None if oracle is not None else self._rows(self._draft_llama, bsz)
         out, n = self._run(
             spec, torch.from_numpy(buf).to(dev),
             torch.tensor([len(t) for t in prompt_tokens], dtype=torch.int64, device=dev),
@@ -382,42 +364,33 @@ class SpeculativeLlama:
         target, cfg = self.target, self.target.config
         if self._draft_llama is None:
             raise ValueError("prefix-cached speculation needs a draft model")
-        bsz = len(prompt_tokens)
-        if bsz > cfg.max_batch_size:
-            out: List[List[int]] = []
-            for i in range(0, bsz, cfg.max_batch_size):
-                out.extend(self.generate_with_prefix_cache(
-                    prompt_tokens[i : i + cfg.max_batch_size], max_gen_len, temperature, top_p))
-            return out
+        parts = split_batch(prompt_tokens, cfg.max_batch_size)
+        if len(parts) > 1:
+            return [t for p in parts
+                    for t in self.generate_with_prefix_cache(p, max_gen_len, temperature, top_p)]
         if max(len(t) for t in prompt_tokens) > cfg.max_seq_len:
             raise ValueError("prompt exceeds max_seq_len")
-        common = min(len(t) for t in prompt_tokens)
-        first = prompt_tokens[0]
-        shared = 0
-        while shared < common and all(t[shared] == first[shared] for t in prompt_tokens):
-            shared += 1
-        # keep >= 1 prompt token in the suffix (the first verify re-feeds it)
-        eff = (min(shared, common - 1) // target.PREFIX_CHUNK) * target.PREFIX_CHUNK
-        if eff < target.PREFIX_CHUNK:
+        eff = target.shared_prefix(prompt_tokens)
+        if not eff:
             return self.generate(prompt_tokens, max_gen_len, temperature, top_p)
 
-        prefix = tuple(first[:eff])
-        t_prefix = target._ensure_prefix_cache(prefix)
-        d_prefix = self._draft_llama._ensure_prefix_cache(prefix)
+        prefix = tuple(prompt_tokens[0][:eff])
+        t_prefix = target.ensure_prefix(prefix)
+        d_prefix = self._draft_llama.ensure_prefix(prefix)
+        bsz = len(prompt_tokens)
         tok = target.tokenizer
         suffixes = [t[eff:] for t in prompt_tokens]
         max_s = max(len(s) for s in suffixes)
         max_gen_len = min(max_gen_len, cfg.max_seq_len - eff - max_s)
-        s_buf = min(_round_up(max_s, self.pad_to_multiple), cfg.max_seq_len - eff)
+        s_buf = min(round_up(max_s, self.pad_to_multiple), cfg.max_seq_len - eff)
         buf = np.full((bsz, s_buf), tok.pad_id, np.int64)
         for i, s in enumerate(suffixes):
             buf[i, : len(s)] = s
-        out_buf_len = _round_up(max_gen_len + self.k + 1, self.pad_to_multiple)
+        out_buf_len = round_up(max_gen_len + self.k + 1, self.pad_to_multiple)
         dev = target.device
         spec = self._spec(None, out_buf_len, temperature, top_p)
-        t_cache = _batch_cache(target, bsz, _cache_spare(cfg, self.k), t_prefix, eff)
-        d_cache = _batch_cache(self._draft_llama, bsz, _cache_spare(self.draft_config, self.k),
-                               d_prefix, eff)
+        t_cache = self._rows(target, bsz, t_prefix)
+        d_cache = self._rows(self._draft_llama, bsz, d_prefix)
         out, n = self._run(
             spec, torch.from_numpy(buf).to(dev),
             torch.tensor([len(s) for s in suffixes], dtype=torch.int64, device=dev),
@@ -440,10 +413,6 @@ class SpeculativeLlama:
                if use_prefix_cache and self._draft_llama is not None else self.generate)
         gens = gen(prompt_tokens, max_gen_len=max_gen_len, temperature=temperature, top_p=top_p)
         return [{"generation": tok.decode(g)} for g in gens]
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def self_draft(

@@ -52,6 +52,7 @@ import torch
 
 from prego_tpu_torch.core.seed import make_generator
 from prego_tpu_torch.models.llama.config import LlamaConfig, refuse_latent
+from prego_tpu_torch.models.llama.generation import cut_row
 from prego_tpu_torch.models.llama.model import Cache, Params, clone_cache, forward, init_cache
 from prego_tpu_torch.ops.sampling import sample_next_token
 
@@ -309,26 +310,10 @@ class ContinuousBatcher:
         """Seed the shared LRU with the chunk-aligned prefix of ``tokens``
         (built or extended by the Llama's prefix machinery). Returns the
         aligned length cached (0 when too short)."""
-        eff = (len(tokens) // self.llama.PREFIX_CHUNK) * self.llama.PREFIX_CHUNK
-        if eff >= self.llama.PREFIX_CHUNK:
-            self.llama._ensure_prefix_cache(tuple(tokens[:eff]))
-            return eff
-        return 0
-
-    def _lookup_prefix(self, body: Sequence[int]) -> Tuple[int, Optional[Cache]]:
-        """Longest cached LRU key that prefixes ``body``; (0, None) if none."""
-        if not self.prefix_sharing:
-            return 0, None
-        best = None
-        for k in self.llama._prefix_caches:
-            if len(k) <= len(body) and tuple(body[: len(k)]) == k:
-                if best is None or len(k) > len(best):
-                    best = k
-        if best is None:
-            return 0, None
-        cache = self.llama._prefix_caches[best]
-        self.llama._prefix_caches.move_to_end(best)  # LRU touch
-        return len(best), cache
+        eff = self.llama.aligned_prefix(len(tokens))
+        if eff:
+            self.llama.ensure_prefix(tuple(tokens[:eff]))
+        return eff
 
     # --------------------------------------------------------- admission
 
@@ -352,7 +337,8 @@ class ContinuousBatcher:
         pend_info: Dict[int, Tuple[List[int], int]] = {}
         for slot, r in assignments:
             body = list(r.prompt[:-1])
-            plen, prefix_cache = self._lookup_prefix(body)
+            plen, prefix_cache = (self.llama.lookup_prefix(body) if self.prefix_sharing
+                                  else (0, None))
             stats.prefills += 1
             if plen:
                 stats.prefix_hits += 1
@@ -576,13 +562,7 @@ class ContinuousBatcher:
         ServeStats are added to ``self.stats``."""
         if not prompt_tokens:
             return []
-        first = list(prompt_tokens[0])
-        common = min(len(t) for t in prompt_tokens)
-        shared = 0
-        while shared < common and all(t[shared] == first[shared] for t in prompt_tokens):
-            shared += 1
-        # keep >= 1 prompt token after the prefix (the first decode feed)
-        self.register_prefix(first[: min(shared, common - 1)])
+        self.register_prefix(prompt_tokens[0][: self.llama.shared_prefix(prompt_tokens)])
         reqs = [
             Request(uid=i, prompt=list(t),
                     max_gen_len=min(max_gen_len, self.config.max_seq_len - len(t)))
@@ -591,9 +571,6 @@ class ContinuousBatcher:
         done, stats = self.serve(reqs, temperature=temperature, top_p=top_p)
         self.stats.add(stats)
         out: List[List[int]] = [[] for _ in reqs]
-        for c in done:
-            toks = c.tokens
-            if self._eos_id in toks:
-                toks = toks[: toks.index(self._eos_id)]
-            out[c.uid] = toks
+        for c in done:  # no PAD_EMIT among the tokens: the cut strips eos
+            out[c.uid] = cut_row(c.tokens, PAD_EMIT, self._eos_id)[0]
         return out

@@ -77,7 +77,7 @@ def test_ragged_batch_equals_each_prompt_alone(fused, kv_quant, path):
     call runs max_gen_len steps at per-row positions and no tail step."""
     lm = _torch_llama(fused, kv_quant, torch.bfloat16)
     got = _run(lm, path, RAGGED)
-    assert (lm.decode_steps, lm.prompt_tail_steps, lm.per_row_calls) == (GEN, 0, 1)
+    assert (lm.decode_steps, lm.per_row_calls) == (GEN, 1)
     assert all(len(g) == GEN and lm.tokenizer.eos_id not in g for g in got)
     alone = [_run(lm, path, [p])[0] for p in RAGGED]
     assert got == alone
@@ -93,7 +93,7 @@ def test_ragged_batch_matches_jax(jax_weights, fused, kv_quant, path):
     jl, tl = _pair(jax_weights, fused, kv_quant, 256)
     want, _ = jl.generate(RAGGED, max_gen_len=GEN, temperature=0.0)
     assert _run(tl, path, RAGGED) == want
-    assert (tl.decode_steps, tl.prompt_tail_steps, tl.per_row_calls) == (GEN, 0, 1)
+    assert (tl.decode_steps, tl.per_row_calls) == (GEN, 1)
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])

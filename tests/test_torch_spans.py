@@ -90,7 +90,7 @@ def test_generate_spans_in_order_and_counted(params, tmp_path, path):
     steps = lm.decode_steps - before
     assert names == head + [STEP] * steps + [READBACK]
     assert TAIL not in names and steps == 6  # max_gen_len steps
-    assert lm.prompt_tail_steps == 0 and lm.per_row_calls == 1
+    assert lm.per_row_calls == 1
     assert lm.suffix_tokens_prefilled == sum(lens)
     assert lm.prefix_tokens_reused == len(prompts) * eff
 
@@ -134,7 +134,7 @@ def test_no_profiler_no_record_function_and_the_same_tokens(params, tmp_path, mo
     assert profiling.annotate(STEP) is profiling.NO_SPAN
     lm = _llama(params)
     assert _run(lm, path, prompts) == traced
-    assert (lm.prompt_tail_steps, lm.decode_steps, lm.per_row_calls) == (0, 6, 1)
+    assert (lm.decode_steps, lm.per_row_calls) == (6, 1)
 
 
 @pytest.fixture(scope="module")
