@@ -11,11 +11,13 @@
    roofline bound and, where one PyTorch call computes the same function,
    that call's time; the decode kernels' inputs cycle through copies that
    pass the L2 cache, and K1's, K6's, K2's, K3's, K4's, K5's, K8's, K8u's,
-   K7's, K9's and K7q's cases also read each call's device time (the union of its
+   K7a's, K7's, K9's and K7q's cases also read each call's device time (the union of its
    kernels' spans), and their library calls' or unfused sequences', from
    torch.profiler (K4 and K5 at decode M 1 and 8, at M 64, 512 and 2048 on
    the 7B w13, M 256 on wqkv and M 512 on wo; K1 also at the training
-   shape, B 16 x 128 frames, and per frame). The cuDNN GRU layer is
+   shape, B 16 x 128 frames, and per frame; K7a and K7 also at the
+   decode row counts of the benchmark's cells, up to 32 rows, one ring
+   launch a call). The cuDNN GRU layer is
    timed beside the trainable GRU layer as a yardstick, the bf16 decode
    fusions (K8, K8u, K7) and the int8 ones (K9 in both modes at the 7B
    wqkv, wo and lm-head shapes, K7q at the 7B FFN) beside the unfused
@@ -141,7 +143,8 @@ KERNEL_INFO = {
     "gru_bwd": ("prego_tpu_torch/csrc/gru_bwd.cu", "prego_tpu/ops/gru_pallas_vjp.py:116"),
     "decode_attention": ("prego_tpu_torch/csrc/decode_attention.cu",
                          "prego_tpu/ops/decode_attention.py:728"),
-    "fused_ffn_block": ("prego_tpu_torch/csrc/fused_ffn.cu", "prego_tpu/ops/fused_ffn.py:131"),
+    "fused_ffn_block": ("prego_tpu_torch/csrc/fused_ffn_bf16.cu (fused_ffn.cu where the ring "
+                        "cannot take D, F)", "prego_tpu/ops/fused_ffn.py:131"),
     "decode_attention_q8": ("prego_tpu_torch/csrc/decode_attention_q8.cu",
                             "prego_tpu/ops/decode_attention.py:1372"),
     "int8_matmul": ("prego_tpu_torch/csrc/int8_matmul.cu", "prego_tpu/ops/quant.py:80"),
@@ -564,29 +567,43 @@ def check_kernels(dev):
     rows["decode_attention"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases))
     del rows["decode_attention"]["R"]
 
-    # K7a at the 7B FFN shapes: M in {1, 8}, D 4096, F 11008
+    # K7a at the 7B FFN shapes (M 1 and 8, D 4096, F 11008) and at the
+    # cells' decode shapes: Mistral-7B's FFN (D 4096, F 14336) at M 8 to 32
+    # and DeepSeek-V2-Lite's dense layer 0 (D 2048, F 10944) at M 32; each
+    # call one launch of csrc/fused_ffn_bf16.cu's ring (up to 4 n8 tiles)
+    from prego_tpu_torch.ops import kernel_launches
+
     cases = []
-    D, F = 4096, 11008
-    w13, w2 = mk(D ** -0.5, D, 2 * F), mk(F ** -0.5, F, D)
-    nw = (mk(0.1, D) + 1).contiguous()
-    for M in (1, 8):
-        h = mk(1.0, M, D)
-        out = ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
-        ref = ffn.fused_ffn_block_reference(h, nw, w13, w2, 1e-5)
-        k7a = lambda *_: ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
-        cases.append(dict(
-            M=M, max_abs_err=max_err(out, ref),
-            ms=time_ms(k7a, 50),
-            # the weights (270 MB) pass the L2, so every call reads them
-            device_ms=device_ms_cycle(k7a, [()], what=f"K7a M {M}"),
-            plain_ms=time_ms(lambda: ffn.fused_ffn_block_reference(h, nw, w13, w2, 1e-5), 50),
-            **bound(2 * M * D * 3 * F, nbytes(h, nw, w13, w2, out)),
-            library_ms=None,  # PyTorch has no fused norm + SwiGLU FFN call
-        ))
-        log_case("fused_ffn_block", f"M={M} D={D} F={F}", cases[-1])
-        log(f"  device {fmt_ms(cases[-1]['device_ms'])} ms")
-    rows["fused_ffn_block"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases))
-    del rows["fused_ffn_block"]["M"]
+    for D, F, row_counts in ((4096, 11008, (1, 8)), (4096, 14336, (8, 16, 24, 32)),
+                             (2048, 10944, (32,))):
+        w13, w2 = mk(D ** -0.5, D, 2 * F), mk(F ** -0.5, F, D)
+        nw = (mk(0.1, D) + 1).contiguous()
+        for M in row_counts:
+            h = mk(1.0, M, D)
+            before = kernel_launches()["fused_ffn_block"]
+            out = ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
+            launches = kernel_launches()["fused_ffn_block"] - before
+            if launches != 1:
+                raise AssertionError(f"K7a M {M} D {D} F {F}: {launches} launches, not 1")
+            ref = ffn.fused_ffn_block_reference(h, nw, w13, w2, 1e-5)
+            k7a = lambda *_: ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
+            cases.append(dict(
+                M=M, D=D, F=F, max_abs_err=max_err(out, ref),
+                ms=time_ms(k7a, 50),
+                # the weights (134-352 MB) pass the L2, so every call reads them
+                device_ms=device_ms_cycle(k7a, [()], what=f"K7a M {M} D {D} F {F}"),
+                plain_ms=time_ms(lambda: ffn.fused_ffn_block_reference(h, nw, w13, w2, 1e-5), 50),
+                **bound(2 * M * D * 3 * F, nbytes(h, nw, w13, w2, out)),
+                library_ms=None,  # PyTorch has no fused norm + SwiGLU FFN call
+            ))
+            log_case("fused_ffn_block", f"M={M} D={D} F={F}", cases[-1])
+            log(f"  device {fmt_ms(cases[-1]['device_ms'])} ms, bound "
+                f"{cases[-1]['bound_ms']:.4f} ms, {launches} launch")
+        del w13, w2
+    rows["fused_ffn_block"] = {k: v for k, v in cases[0].items() if k not in ("M", "D", "F")}
+    rows["fused_ffn_block"]["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    rows["fused_ffn_block"]["device_ms_by_shape"] = {
+        f"M {c['M']} D {c['D']} F {c['F']}": c["device_ms"] for c in cases}
     for name, row in rows.items():
         if name != "gru_bwd" and not row["max_abs_err"] <= TOL[name]:
             raise AssertionError(f"{name}: max_abs_err {row['max_abs_err']} > {TOL[name]}")
@@ -743,8 +760,9 @@ def check_quant_kernels(dev):
 
 def check_fused_kernels(dev):
     """K8 (both bodies) and K8u at the 1B attention shape (KV 16, R 1, hd
-    128, T 512, D 2048) at B 1 and 8, and K7 at the 1B FFN (M 1 and 8) and
-    the 7B FFN (M 1), against their plain versions; inputs cycle through
+    128, T 512, D 2048) at B 1 and 8, and K7 at the 1B FFN (M 1 and 8),
+    the 7B FFN (M 1) and DeepSeek-V2-Lite's shared experts (M 8 and 32),
+    against their plain versions; inputs cycle through
     copies that pass the L2 cache. Beside K8 and K8u, the unfused sequence
     each replaces (K2, the wo product, the cast and the add; for K8u the
     cache write first); K7's plain version is that sequence. Returns the
@@ -862,11 +880,17 @@ def check_fused_kernels(dev):
             f"torch.mm, cast, add) {case['unfused_ms']:.4f}, device "
             f"{fmt_ms(case['unfused_device_ms'])}; a call: {case['per_call']}")
 
-    # K7 at the 1B FFN (M 1 and 8) and the 7B FFN (M 1)
-    for M, D_, F in ((1, 2048, 5632), (8, 2048, 5632), (1, 4096, 11008)):
+    # K7 at the 1B FFN (M 1 and 8), the 7B FFN (M 1) and DeepSeek-V2-Lite's
+    # shared experts (M 8 and 32), each call one launch of the ring
+    for M, D_, F in ((1, 2048, 5632), (8, 2048, 5632), (1, 4096, 11008), (8, 2048, 2816),
+                     (32, 2048, 2816)):
         sets = copies_past_l2(lambda: (rn(M, D_), rn(D_, 2 * F, scale=D_ ** -0.5),
                                        rn(F, D_, scale=F ** -0.5)), 3 * D_ * F * 2)
+        before = ffn.KERNEL_FFN.launches
         y = ffn.fused_ffn(*sets[0])
+        if ffn.KERNEL_FFN.launches != before + 1:
+            raise AssertionError(f"K7 M {M} D {D_} F {F}: "
+                                 f"{ffn.KERNEL_FFN.launches - before} ring launches, not 1")
         case = dict(
             M=M, D=D_, F=F, max_abs_err=max_err(y, ffn.fused_ffn_reference(*sets[0])),
             ms=time_ms_cycle(ffn.fused_ffn, sets, 50),
@@ -877,7 +901,7 @@ def check_fused_kernels(dev):
         )
         cases["fused_ffn"].append(case)
         log_case("fused_ffn", f"M={M} D={D_} F={F}", case, "; plain = the unfused sequence")
-        log(f"  device {fmt_ms(case['device_ms'])} ms")
+        log(f"  device {fmt_ms(case['device_ms'])} ms, bound {case['bound_ms']:.4f} ms")
 
     rows = {}
     for name, cs in cases.items():
@@ -1280,7 +1304,7 @@ def check_per_row_against_cpu(cfg, p_dev, p_cpu, dev, rng):
     in bf16 against the same forward on the CPU in f32, with the 7B bf16
     check's tolerance; the decode steps run K2 with (B,) bounds and K7a."""
     from prego_tpu_torch.models.llama.model import forward, init_cache
-    from prego_tpu_torch.ops import kernels
+    from prego_tpu_torch.ops import kernel_launches
 
     B = 8
     starts = torch.tensor([0, 3, 7, 12, 0, 5, 9, 2], dtype=torch.int32)
@@ -1292,11 +1316,11 @@ def check_per_row_against_cpu(cfg, p_dev, p_cpu, dev, rng):
                                       (starts + 17, toks[:, 17:18]),
                                       (starts + 18, toks[:, 18:19]))):
         if i == 1:
-            before = {n: k.launches for n, k in kernels().items()}
+            before = kernel_launches()
         l_dev, c_dev = forward(p_dev, chunk.to(dev), pos.to(dev), c_dev, cfg)
         l_cpu, c_cpu = forward(p_cpu, chunk, pos, c_cpu, cfg)
         worst = max(worst, max_err(l_dev.cpu(), l_cpu) / float(l_cpu.abs().max()))
-    ran = {n: k.launches - before[n] for n, k in kernels().items() if k.launches > before[n]}
+    ran = {n: c - before[n] for n, c in kernel_launches().items() if c > before[n]}
     log(f"(a) per-row forward, LLaMA 7B width x 2 layers, 8 rows at starts {starts.tolist()}, "
         f"card bf16 vs CPU f32, prefill 16 + 3 decode steps: max |d logit| / max |logit| "
         f"{worst:.3e} (tol 3e-2); kernels at decode {ran}")
@@ -1361,7 +1385,7 @@ def check_llama_1b(dev, toks):
     from prego_tpu_torch.anticipation.llm import fabricated_config
     from prego_tpu_torch.models.llama.model import forward, fuse_projections, init_cache
     from prego_tpu_torch.models.llama.model import init_params
-    from prego_tpu_torch.ops import kernels
+    from prego_tpu_torch.ops import kernel_launches
 
     cfg = fabricated_config("1b", max_seq_len=512, max_batch_size=8, n_layers=2)
     gen = torch.Generator(device=dev)
@@ -1373,7 +1397,7 @@ def check_llama_1b(dev, toks):
               "cache_upd": ("decode_attention_wo_res_upd", "fused_ffn_block")}
     out = {}
     for setting, env in FUSION_SETTINGS.items():
-        before = {n: k.launches for n, k in kernels().items()}
+        before = kernel_launches()
         with gate_env(env):
             c_dev = init_cache(cfg, 2, torch.bfloat16, dev)
             c_cpu = init_cache(cfg, 2, torch.float32, "cpu")
@@ -1383,7 +1407,7 @@ def check_llama_1b(dev, toks):
                 l_dev, c_dev = forward(p_dev, chunk.to(dev), pos, c_dev, cfg)
                 l_cpu, c_cpu = forward(p_cpu, chunk, pos, c_cpu, cfg)
                 worst = max(worst, max_err(l_dev.cpu(), l_cpu) / float(l_cpu.abs().max()))
-        ran = {n: k.launches - before[n] for n, k in kernels().items() if k.launches > before[n]}
+        ran = {n: c - before[n] for n, c in kernel_launches().items() if c > before[n]}
         log(f"LLaMA 1B width x 2 layers, {setting}, card bf16 vs CPU f32, prefill 16 + 3 decode "
             f"steps: max |d logit| / max |logit| {worst:.3e} (tol 3e-2); kernels run {ran}")
         if not worst <= 3e-2:
@@ -1404,7 +1428,7 @@ def check_llama_quantized(cfg, dev, toks):
     from prego_tpu_torch.models.llama.model import (
         forward, init_cache, init_params_quantized, mark_activations,
     )
-    from prego_tpu_torch.ops import kernels
+    from prego_tpu_torch.ops import kernel_launches
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
@@ -1443,12 +1467,12 @@ def check_llama_quantized(cfg, dev, toks):
             steps = []
             for pos, chunk in ((0, toks[:, :16]), (16, toks[:, 16:17]), (17, toks[:, 17:18]),
                                (18, toks[:, 18:19])):
-                before = {n: k.launches for n, k in kernels().items()}
+                before = kernel_launches()
                 with gate_env(env):
                     lg, cache = forward(params, chunk.to(device), pos, cache, cfg)
                 steps.append(lg.float().cpu())
                 if walk == "card" and pos > 0:
-                    decode_ran |= {n for n, k in kernels().items() if k.launches > before[n]}
+                    decode_ran |= {n for n, c in kernel_launches().items() if c > before[n]}
             logits[walk] = torch.cat(steps, dim=1)
         ref = logits["cpu_f32"]
         same = max_err(logits["card"], logits["cpu_bf16"]) / float(logits["cpu_bf16"].abs().max())
@@ -1568,7 +1592,7 @@ def run_main_path(dev):
     from prego_tpu_torch.cli.train import run_eval, run_train
     from prego_tpu_torch.core import RecognitionConfig
     from prego_tpu_torch.core.seed import make_generator
-    from prego_tpu_torch.ops import kernels
+    from prego_tpu_torch.ops import kernel_launches, kernels, reset_launches
 
     t0 = time.perf_counter()
     data, video_list, lengths = make_videos(WORK / "data")
@@ -1600,8 +1624,7 @@ def run_main_path(dev):
         f"7B bf16 weights ({t_q - t_llm:.1f}s), two 7B int8 trees ({t_1b - t_q:.1f}s), "
         f"1B bf16 weights ({time.perf_counter() - t_1b:.1f}s)")
 
-    for k in kernels().values():
-        k.launches = 0
+    reset_launches()
     t1 = time.perf_counter()
     trained = run_train(cfg, str(dev))
     t2 = time.perf_counter()
@@ -1649,7 +1672,7 @@ def run_main_path(dev):
             torch.cuda.synchronize()
         fused[setting] = (res, time.perf_counter() - t_m, llm_1b.llama.decode_steps - steps0,
                           k2.launches - k2_before)
-    launches = {name: k.launches for name, k in kernels().items()}
+    launches = kernel_launches()
 
     raw = json.loads((WORK / "pipeline" / "perframe_predictions.json").read_text())
     check_perframe(raw, lengths)
@@ -1732,14 +1755,13 @@ def run_main_path(dev):
 def count_launches(fn):
     """``fn()`` with every kernel's count set to 0 just before it; returns
     (its result, the counts just after, the seconds it took)."""
-    from prego_tpu_torch.ops import kernels
+    from prego_tpu_torch.ops import kernel_launches, reset_launches
 
-    for k in kernels().values():
-        k.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: k.launches for name, k in kernels().items()}, time.perf_counter() - t0
+    return out, kernel_launches(), time.perf_counter() - t0
 
 
 def check_launched(phase, counts, must, must_not=FUSED_WO):

@@ -17,6 +17,13 @@
 // One set of kernels serves all three: K7 is the compile-time flag kBlock =
 // false, K7q the weight type W = int8_t.
 //
+// Which shapes come here: this is the three kernels' first design, 8 rows a
+// launch. K7a and K7 run it only where the TMA ring of fused_ffn_bf16.cu
+// cannot take the weights (D or F no multiple of 16, more column tiles than
+// SMs, a split past shared memory: ops/fused_ffn.py::ring_splits), and K7q
+// where fused_ffn_q8.cu's ring cannot; every other shape, the cells' among
+// them, takes the ring.
+//
 // What bounds it here: at M <= 8 rows this is pure weight streaming.
 // Every weight is used M times, so the sub-layer reads 3 x D x F bf16
 // (270 MB per layer at D = 4096, F = 11008) for 6 x M x D x F FLOPs, far

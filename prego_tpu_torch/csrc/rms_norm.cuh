@@ -20,14 +20,15 @@ constexpr int kWarps = kThreads / 32;
 // 1 / rms of the M rows of h (M, D) bf16 into inv_rms[m] (shared memory),
 // by a block of kThreads threads: each thread sums the squares of its
 // 8-value loads of a row in order (f32), the warps' sums are added in warp
-// order, then 1 / sqrt(mean + eps). The norm launch below and K9's GEMV
-// prologue (fused_dense_q8.cu) both take their statistic from here, so they
-// agree bit for bit. D a multiple of 8, rows 16-byte aligned. Ends with a
-// barrier.
-template <int M>
+// order, then 1 / sqrt(mean + eps). The norm launch below, K9's GEMV
+// prologue (fused_dense_q8.cu) and K7q's and K7a's ring prologues all take
+// their statistic from here, so they agree bit for bit. kMasked: only the
+// first `rows` of the M rows exist (a row's sum is the same either way).
+// D a multiple of 8, rows 16-byte aligned. Ends with a barrier.
+template <int M, bool kMasked = false>
 __device__ __forceinline__ void inv_rms_rows(const __nv_bfloat16* __restrict__ h, int D,
                                              float eps, float (*warp_part)[kWarps],
-                                             float* inv_rms) {
+                                             float* inv_rms, int rows = M) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     float ss[M];
 #pragma unroll
@@ -36,7 +37,9 @@ __device__ __forceinline__ void inv_rms_rows(const __nv_bfloat16* __restrict__ h
         uint4 raw[M];
 #pragma unroll
         for (int m = 0; m < M; ++m)
-            raw[m] = reinterpret_cast<const uint4*>(h + static_cast<size_t>(m) * D)[i];
+            raw[m] = !kMasked || m < rows
+                         ? reinterpret_cast<const uint4*>(h + static_cast<size_t>(m) * D)[i]
+                         : make_uint4(0, 0, 0, 0);
 #pragma unroll
         for (int m = 0; m < M; ++m) {
             const unsigned int w[4] = {raw[m].x, raw[m].y, raw[m].z, raw[m].w};
@@ -50,10 +53,10 @@ __device__ __forceinline__ void inv_rms_rows(const __nv_bfloat16* __restrict__ h
 #pragma unroll
     for (int m = 0; m < M; ++m) {
         const float s = warp_sum(ss[m]);
-        if (lane == 0) warp_part[m][warp] = s;
+        if (lane == 0 && (!kMasked || m < rows)) warp_part[m][warp] = s;
     }
     __syncthreads();
-    if (tid < M) {
+    if (tid < (kMasked ? rows : M)) {
         float tot = 0.f;
         for (int w = 0; w < kWarps; ++w) tot += warp_part[tid][w];
         inv_rms[tid] = 1.f / sqrtf(tot / static_cast<float>(D) + eps);

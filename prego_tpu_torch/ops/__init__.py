@@ -5,7 +5,8 @@ PyTorch version on a CPU tensor."""
 
 from prego_tpu_torch.ops.gru import gru_cell, gru_scan, init_gru_params
 
-__all__ = ["gru_cell", "gru_scan", "init_gru_params", "kernels"]
+__all__ = ["gru_cell", "gru_scan", "init_gru_params", "kernel_launches", "kernels",
+           "reset_launches"]
 
 
 def kernels():
@@ -30,3 +31,23 @@ def kernels():
         "fused_ffn_block_q8": fused_ffn.KERNEL_Q8,
         "decode_attention_q8_mxu": decode_attention_q8.KERNEL_MXU,
     }
+
+
+def kernel_launches():
+    """The launches each ported TPU kernel has made, by ``kernels()``'s
+    names; K7a's ("fused_ffn_block") are its ring's (``fused_ffn.KERNEL_BLOCK``,
+    in K7's library) and its first design's together."""
+    from prego_tpu_torch.ops import fused_ffn
+
+    counts = {name: k.launches for name, k in kernels().items()}
+    counts["fused_ffn_block"] += fused_ffn.KERNEL_BLOCK.launches
+    return counts
+
+
+def reset_launches():
+    """Every kernel library's launch count to 0."""
+    from prego_tpu_torch.ops._cuda import CudaKernel
+
+    kernels()  # imports every wrapper, so that each library is counted
+    for k in CudaKernel.instances:
+        k.launches = 0

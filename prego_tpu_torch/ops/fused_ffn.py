@@ -1,4 +1,5 @@
-"""K7a, K7 and K7q: the decode FFN in CUDA (``csrc/fused_ffn.cu``).
+"""K7a, K7 and K7q: the decode FFN in CUDA (``csrc/fused_ffn_bf16.cu``,
+``csrc/fused_ffn_q8.cu``, ``csrc/fused_ffn.cu``).
 
 K7a, port of prego_tpu/ops/fused_ffn.py::fused_ffn_block: returns
 ``h + ffn(rms_norm(h, norm_weight, eps))`` in h's dtype, with w13 the
@@ -17,15 +18,22 @@ scales on the up products, ``a`` cast to bf16, w2's scales on the final
 sum, then the cast to h's dtype and the residual add.
 
 On a CUDA tensor ``fused_ffn_block``, ``fused_ffn`` and
-``fused_ffn_block_q8`` launch their kernel (bf16 activations; the kernel
-takes up to 8 decode rows a call, more go in calls of 8); on a CPU tensor
-they run ``fused_ffn_block_reference``, the unfused op sequence
+``fused_ffn_block_q8`` launch their kernel (bf16 activations); on a CPU
+tensor they run ``fused_ffn_block_reference``, the unfused op sequence
 ``rms_norm -> feed_forward -> + h``, ``fused_ffn_reference`` and
-``fused_ffn_block_q8_reference``. K7q's kernel is ``csrc/fused_ffn_q8.cu``
-and K7's ``csrc/fused_ffn_bf16.cu`` (each one persistent launch, a TMA ring
-and tensor-core products, its scratch in a persistent workspace) where TMA
-can take the weights (D and F multiples of 16); other shapes take their
-first design, K7a's kernels (over int8 for K7q) in ``csrc/fused_ffn.cu``.
+``fused_ffn_block_q8_reference``. Which design a CUDA call takes follows
+from (D, F) alone, and how many calls from M besides (``ffn_design``):
+
+- K7a and K7: where the TMA ring takes the weights (D and F multiples of
+  16, ``ring_splits``), one persistent launch of ``csrc/fused_ffn_bf16.cu``
+  (a TMA ring and tensor-core products, its scratch in a persistent
+  workspace) for up to 32 decode rows, so the weights are read once a
+  decode step; more rows go in calls of 32. Where a split's activations
+  for all of a call's rows would pass shared memory, the entry point
+  itself makes launches of as many rows as fit. Other shapes take their
+  first design, K7a's kernels in ``csrc/fused_ffn.cu``, 8 rows a launch.
+- K7q: ``csrc/fused_ffn_q8.cu``'s ring where ``ring_splits`` takes (D, F),
+  else K7a's first-design kernels over int8; 8 rows a launch either way.
 """
 
 from __future__ import annotations
@@ -49,6 +57,13 @@ KERNEL_FFN = CudaKernel(
     "fused_ffn_bf16.cu",
     {"prego_fused_ffn_tma": [c_ptr] * 8 + [c_int] * 5 + [c_ptr]},
 )
+# K7a's ring, in K7's library; its launches counted apart from the first
+# design's (KERNEL)
+KERNEL_BLOCK = CudaKernel(
+    "fused_ffn_bf16",
+    "fused_ffn_bf16.cu",
+    {"prego_fused_ffn_block_tma": [c_ptr] * 9 + [c_int] * 5 + [c_float, c_ptr]},
+)
 KERNEL_Q8 = CudaKernel(
     "fused_ffn_q8",
     "fused_ffn_q8.cu",
@@ -64,11 +79,12 @@ KERNEL_Q8_FFMA = CudaKernel(
     "fused_ffn.cu",
     {"prego_fused_ffn_block_q8": [c_ptr] * 10 + [c_int] * 4 + [c_float, c_ptr]},
 )
-# K7's and K7q's scratch, kept between calls: the up units' partial sums
-# (P, M, 2F) f32, a (M, F) bf16, the down units' partial sums (S, M, D) f32
-# and the counters (each column tile's arrivals and departures, the up units
-# done, the blocks past their wait: zero, and left zero); the first
-# designs' xn_t (K7q only), a_t and partial sums
+# The rings' scratch, kept between calls (one set for K7 and K7a, one for
+# K7q): the up units' partial sums (P, M, 2F) f32, a (M, F) bf16, the down
+# units' partial sums (S, M, D) f32 and the counters (each column tile's
+# arrivals and departures, the up units done, the blocks past their wait:
+# zero, and left zero); the first designs' xn_t (K7q only), a_t and partial
+# sums
 WORKSPACE_FFN = Workspace((torch.float32, torch.bfloat16, torch.float32, torch.int32),
                           zero=(False, False, False, True))
 WORKSPACE_Q8 = Workspace((torch.float32, torch.bfloat16, torch.float32, torch.int32),
@@ -76,7 +92,8 @@ WORKSPACE_Q8 = Workspace((torch.float32, torch.bfloat16, torch.float32, torch.in
 WORKSPACE_FFN_FFMA = Workspace((torch.bfloat16, torch.float32))
 WORKSPACE_Q8_FFMA = Workspace((torch.bfloat16, torch.bfloat16, torch.float32))
 
-MAX_DECODE_ROWS = 8  # rows one kernel call takes (the main path's decode M is at most 8)
+MAX_DECODE_ROWS = 8  # rows one launch of a first design or of K7q's ring takes
+RING_MAX_ROWS = 32  # rows one launch of K7's and K7a's ring takes: four n8 tiles of mma.sync
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -162,9 +179,31 @@ def ring_splits(D: int, F: int, sms: int):
     return P, S
 
 
+def ffn_design(D: int, F: int, sms: int):
+    """The dispatch rule of ``fused_ffn_block`` and ``fused_ffn``: ("ring",
+    RING_MAX_ROWS) where the ring takes (D, F) (``ring_splits``), else
+    ("first", MAX_DECODE_ROWS): the design, and the most rows a call of its
+    entry point takes."""
+    if ring_splits(D, F, sms) is None:
+        return "first", MAX_DECODE_ROWS
+    return "ring", RING_MAX_ROWS
+
+
 def _ring_counters(D: int, F: int) -> int:
     """The ring kernels' counters: two a column tile of each phase, two more."""
     return 2 * (_ceil(F, _RING_UP_COLS) + _ceil(D, _RING_DOWN_COLS)) + 2
+
+
+def _ring_scratch(F: int, sms: int):
+    """K7's and K7a's workspace for RING_MAX_ROWS decode rows, the most a
+    launch takes: part13 (P, rows, 2F), a (rows, F), part2 (S, rows, D), the
+    counters. A split's column tile is 512 columns (256 gate and 256 up, or
+    512 out) and there are at most ``sms`` units a phase, so P 2F and S D are
+    at most 512 sms and the counters 4 sms + 2: the set made for one shape
+    serves every shape of a card whose F is no larger, K7's and K7a's in one
+    model alike, at every row count a step may have."""
+    rows = RING_MAX_ROWS
+    return 512 * sms * rows, rows * F, 512 * sms * rows, 4 * sms + 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,13 +216,13 @@ def fused_ffn(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor) -> torch.Ten
     if not x.is_cuda:
         return fused_ffn_reference(x, w13, w2)
     M, D, F, splits = _check("fused_ffn", x, w13, w2)
-    if M > MAX_DECODE_ROWS:
-        return torch.cat([fused_ffn(x[i : i + MAX_DECODE_ROWS], w13, w2)
-                          for i in range(0, M, MAX_DECODE_ROWS)])
+    sms = _num_sms(x.device.index)
+    design, step = ffn_design(D, F, sms)
+    if M > step:
+        return torch.cat([fused_ffn(x[i : i + step], w13, w2) for i in range(0, M, step)])
     out = torch.empty(M, D, dtype=torch.float32, device=x.device)
     stream = stream_ptr(x.device)
-    design = ring_splits(D, F, _num_sms(x.device.index))
-    if design is None:
+    if design == "first":
         a_t, part = WORKSPACE_FFN_FFMA.get(x.device, stream, F * M, splits * M * D)
         KERNEL_FFN_FFMA.launches += 1
         KERNEL_FFN_FFMA.call(
@@ -191,9 +230,8 @@ def fused_ffn(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor) -> torch.Ten
             part.data_ptr(), out.data_ptr(), M, D, F, splits, stream,
         )
         return out
-    P, S = design
-    part13, a, part2, counters = WORKSPACE_FFN.get(
-        x.device, stream, P * M * 2 * F, M * F, S * M * D, _ring_counters(D, F))
+    P, S = ring_splits(D, F, sms)
+    part13, a, part2, counters = WORKSPACE_FFN.get(x.device, stream, *_ring_scratch(F, sms))
     KERNEL_FFN.launches += 1
     KERNEL_FFN.call(
         "prego_fused_ffn_tma", x.data_ptr(), w13.data_ptr(), w2.data_ptr(), part13.data_ptr(),
@@ -213,19 +251,32 @@ def fused_ffn_block(
         return fused_ffn_block_reference(h, norm_weight, w13, w2, eps)
     M, D, F, splits = _check("fused_ffn_block", h, w13, w2)
     check_cuda_tensor("norm_weight", norm_weight, torch.bfloat16, (D,))
-    if M > MAX_DECODE_ROWS:
-        return torch.cat([fused_ffn_block(h[i : i + MAX_DECODE_ROWS], norm_weight, w13, w2, eps)
-                          for i in range(0, M, MAX_DECODE_ROWS)])
+    sms = _num_sms(h.device.index)
+    design, step = ffn_design(D, F, sms)
+    if M > step:
+        return torch.cat([fused_ffn_block(h[i : i + step], norm_weight, w13, w2, eps)
+                          for i in range(0, M, step)])
     out = torch.empty_like(h)
-    xn_t = torch.empty(D, M, dtype=torch.bfloat16, device=h.device)
-    a_t = torch.empty(F, M, dtype=torch.bfloat16, device=h.device)
-    part = torch.empty(splits, M, D, dtype=torch.float32, device=h.device)
-    KERNEL.launches += 1
-    KERNEL.call(
-        "prego_fused_ffn_block",
-        h.data_ptr(), norm_weight.data_ptr(), w13.data_ptr(), w2.data_ptr(), xn_t.data_ptr(),
-        a_t.data_ptr(), part.data_ptr(), out.data_ptr(), M, D, F, splits, float(eps),
-        stream_ptr(h.device),
+    stream = stream_ptr(h.device)
+    if design == "first":
+        xn_t = torch.empty(D, M, dtype=torch.bfloat16, device=h.device)
+        a_t = torch.empty(F, M, dtype=torch.bfloat16, device=h.device)
+        part = torch.empty(splits, M, D, dtype=torch.float32, device=h.device)
+        KERNEL.launches += 1
+        KERNEL.call(
+            "prego_fused_ffn_block",
+            h.data_ptr(), norm_weight.data_ptr(), w13.data_ptr(), w2.data_ptr(), xn_t.data_ptr(),
+            a_t.data_ptr(), part.data_ptr(), out.data_ptr(), M, D, F, splits, float(eps), stream,
+        )
+        return out
+    P, S = ring_splits(D, F, sms)
+    part13, a, part2, counters = WORKSPACE_FFN.get(h.device, stream, *_ring_scratch(F, sms))
+    KERNEL_BLOCK.launches += 1
+    KERNEL_BLOCK.call(
+        "prego_fused_ffn_block_tma",
+        h.data_ptr(), norm_weight.data_ptr(), w13.data_ptr(), w2.data_ptr(), part13.data_ptr(),
+        a.data_ptr(), part2.data_ptr(), counters.data_ptr(), out.data_ptr(), M, D, F, P, S,
+        float(eps), stream,
     )
     return out
 

@@ -13,6 +13,10 @@ kernels' working type.
 import ctypes
 import functools
 import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -241,7 +245,8 @@ def _ffn_inputs(device, M, D, F, seed=0):
 
 @pytest.mark.parametrize("M,D,F", [(1, 64, 176), (3, 256, 512), (8, 512, 1000),
                                    (1, 4096, 11008), (8, 4096, 11008),
-                                   (12, 512, 1000), (16, 2048, 5632)])  # in calls of 8 rows
+                                   (12, 512, 1000),  # the first design, in calls of 8 rows
+                                   (16, 2048, 5632)])  # the ring, one launch
 def test_fused_ffn_kernel_matches_plain(cuda_device, M, D, F):
     h, nw, w13, w2 = _ffn_inputs(cuda_device, M, D, F)
     out = ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
@@ -693,11 +698,13 @@ def test_fused_ffn_alone_kernel_matches_plain(cuda_device, M, D, F):
     x = ffn.rms_norm(h, nw, 1e-5)  # K7 takes the normed rows
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     # F 1000 takes the first design (TMA cannot start a box at column 1000)
-    kernel = ffn.KERNEL_FFN if ffn.ring_splits(D, F, sms) else ffn.KERNEL_FFN_FFMA
+    design, step = ffn.ffn_design(D, F, sms)
+    launches = -(-M // step)
+    kernel = ffn.KERNEL_FFN if design == "ring" else ffn.KERNEL_FFN_FFMA
     before = kernel.launches
     y = ffn.fused_ffn(x, w13, w2)
     torch.cuda.synchronize()
-    assert kernel.launches == before + (M + 7) // 8
+    assert kernel.launches == before + launches
     assert y.dtype == torch.float32 and y.shape == (M, D)
     torch.testing.assert_close(y, ffn.fused_ffn_reference(x, w13, w2), **FFN_ALONE_TOL)
     assert torch.equal(ffn.fused_ffn(x, w13, w2), y)  # the same bits again
@@ -705,16 +712,15 @@ def test_fused_ffn_alone_kernel_matches_plain(cuda_device, M, D, F):
 
 @pytest.mark.parametrize("M", [*range(1, 9), 11])
 def test_fused_ffn_alone_at_every_decode_row_count(cuda_device, M):
-    """K7 at the 1B FFN (D 2048, F 5632) at each row count a call takes,
-    and 11 (calls of 8 and 3): csrc/fused_ffn_bf16.cu's kernel, the same
-    bits twice."""
+    """K7 at the 1B FFN (D 2048, F 5632) at each row count of one n8 tile,
+    and 11 (two tiles): csrc/fused_ffn_bf16.cu's kernel, one launch, the
+    same bits twice."""
     h, nw, w13, w2 = _ffn_inputs(cuda_device, M, 2048, 5632, seed=50 + M)
     x = ffn.rms_norm(h, nw, 1e-5)
     before = ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches
     y = ffn.fused_ffn(x, w13, w2)
     torch.cuda.synchronize()
-    assert (ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches) == (
-        before[0] + (M + 7) // 8, before[1])
+    assert (ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches) == (before[0] + 1, before[1])
     torch.testing.assert_close(y, ffn.fused_ffn_reference(x, w13, w2), **FFN_ALONE_TOL)
     assert torch.equal(ffn.fused_ffn(x, w13, w2), y)
 
@@ -734,14 +740,16 @@ def test_fused_ffn_alone_first_design_where_tma_cannot_go(cuda_device):
 
 def test_fused_ffn_alone_launches_allocations_and_graph_replay(cuda_device):
     """K7 at the 1B FFN: one kernel a call and one allocation, its output;
-    a call captured at M 1, replayed after an eager M 8 call has outgrown
-    the workspace the graph holds, with new inputs in the captured buffers,
-    gives the eager M 1 bits; the counters are left zero. The first design
-    too allocates only its output."""
+    a call captured at M 1, replayed after an eager call at the 7B FFN has
+    outgrown the workspace the graph holds (a workspace holds the most rows
+    a launch takes, so only a wider FFN outgrows it), with new inputs in
+    the captured buffers, gives the eager M 1 bits; the counters are left
+    zero. The first design too allocates only its output."""
     stream = torch.cuda.Stream(cuda_device)
     h, nw, w13, w2 = _ffn_inputs(cuda_device, 8, 2048, 5632, seed=1)
     small = [ffn.rms_norm(h[:1], nw, 1e-5).contiguous(), w13, w2]
-    large = [ffn.rms_norm(h, nw, 1e-5), w13, w2]
+    h7, nw7, w13_7, w2_7 = _ffn_inputs(cuda_device, 8, 4096, 11008, seed=4)
+    large = [ffn.rms_norm(h7, nw7, 1e-5), w13_7, w2_7]
     odd = _ffn_inputs(cuda_device, 3, 512, 1000, seed=2)
     fn = lambda a=small: ffn.fused_ffn(*a)
     fn_odd = lambda: ffn.fused_ffn(odd[0], odd[2], odd[3])
@@ -775,6 +783,181 @@ def test_fused_ffn_alone_launches_allocations_and_graph_replay(cuda_device):
         assert int(bufs[3].abs().sum()) == 0
 
 
+# K7a on the ring against its plain version: chip_smoke.py's bar for
+# fused_ffn_block (TOL), the largest |out - plain|: where an f32 sum taken
+# in another order straddles a bf16 boundary of a, and then of h + y, the
+# output moves an ulp or two (2^-5 at |out| < 8)
+K7A_TOL = 2.0 ** -4
+# Mistral-7B's FFN, DeepSeek-V2-Lite's dense layer 0, and a small shape (4
+# up tiles, 1 down tile)
+K7A_SHAPES = [(4096, 14336), (2048, 10944), (256, 1024)]
+
+
+@pytest.mark.parametrize("D,F", K7A_SHAPES)
+def test_k7a_ring_at_every_row_count(cuda_device, D, F):
+    """K7a at M 1 to 32 (one launch of csrc/fused_ffn_bf16.cu's ring), 33
+    and 40 (two), against the plain version, the same bits on a second
+    call; the first design's count does not move."""
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 40, D, F, seed=D + F)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for M in [*range(1, 33), 33, 40]:
+        x = h[:M]
+        launches = 1 if M <= 32 else 2
+        assert ffn.ffn_design(D, F, sms) == ("ring", 32)
+        before = ffn.KERNEL_BLOCK.launches, ffn.KERNEL.launches
+        out = ffn.fused_ffn_block(x, nw, w13, w2, 1e-5)
+        torch.cuda.synchronize()
+        assert (ffn.KERNEL_BLOCK.launches, ffn.KERNEL.launches) == (
+            before[0] + launches, before[1]), M
+        assert out.dtype == torch.bfloat16 and out.shape == (M, D)
+        want = ffn.fused_ffn_block_reference(x, nw, w13, w2, 1e-5)
+        err = float((out.float() - want.float()).abs().max())
+        assert err <= K7A_TOL, (M, err)
+        assert torch.equal(ffn.fused_ffn_block(x, nw, w13, w2, 1e-5), out), M
+
+
+@pytest.mark.parametrize("D,F", K7A_SHAPES[:2])
+def test_k7a_row_bits_do_not_depend_on_its_launch(cuda_device, D, F):
+    """A row's output is the same bits launched alone, among 32, or in the
+    second launch of 40 rows: the ring's sums run in an order that (D, F)
+    alone fixes."""
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 40, D, F, seed=7)
+    all40 = ffn.fused_ffn_block(h, nw, w13, w2, 1e-5)
+    assert torch.equal(ffn.fused_ffn_block(h[:32], nw, w13, w2, 1e-5), all40[:32])
+    for r in (0, 5, 8, 17, 31, 32, 39):
+        assert torch.equal(ffn.fused_ffn_block(h[r : r + 1], nw, w13, w2, 1e-5),
+                           all40[r : r + 1]), r
+
+
+@pytest.mark.parametrize("M", [24, 25, 26, 32])
+def test_ring_call_past_shared_memory_launches_what_fits(cuda_device, M):
+    """At 13B's widths (D 5120, F 13824) a split's activations fit shared
+    memory for 25 rows: one call of K7a's and of K7's entry point takes M up
+    to 32 all the same, in launches of 25 and the rest, with the plain
+    version's values and each row's bits as launched alone."""
+    D, F = 5120, 13824
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, M, D, F, seed=M)
+    x = ffn.rms_norm(h, nw, 1e-5)
+    before = ffn.KERNEL_BLOCK.launches, ffn.KERNEL_FFN.launches
+    out, y = ffn.fused_ffn_block(h, nw, w13, w2, 1e-5), ffn.fused_ffn(x, w13, w2)
+    torch.cuda.synchronize()
+    assert (ffn.KERNEL_BLOCK.launches, ffn.KERNEL_FFN.launches) == (before[0] + 1, before[1] + 1)
+    want = ffn.fused_ffn_block_reference(h, nw, w13, w2, 1e-5)
+    assert float((out.float() - want.float()).abs().max()) <= K7A_TOL
+    torch.testing.assert_close(y, ffn.fused_ffn_reference(x, w13, w2), **FFN_ALONE_TOL)
+    for r in sorted({0, min(25, M - 1), M - 1}):  # row 25 opens the second launch
+        assert torch.equal(ffn.fused_ffn_block(h[r : r + 1], nw, w13, w2, 1e-5), out[r : r + 1])
+        assert torch.equal(ffn.fused_ffn(x[r : r + 1], w13, w2), y[r : r + 1])
+
+
+@pytest.mark.parametrize("D,F", [(2048, 2816), (2048, 5632)])
+def test_fused_ffn_alone_ring_from_9_to_32_rows(cuda_device, D, F):
+    """K7 at DeepSeek-V2-Lite's shared experts (F 2816) and the 1B FFN at M
+    9 to 32: one ring launch, the plain version's values, the same bits
+    twice."""
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 32, D, F, seed=F)
+    x = ffn.rms_norm(h, nw, 1e-5)
+    for M in range(9, 33):
+        before = ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches
+        y = ffn.fused_ffn(x[:M], w13, w2)
+        torch.cuda.synchronize()
+        assert (ffn.KERNEL_FFN.launches, ffn.KERNEL_FFN_FFMA.launches) == (
+            before[0] + 1, before[1]), M
+        torch.testing.assert_close(y, ffn.fused_ffn_reference(x[:M], w13, w2), **FFN_ALONE_TOL)
+        assert torch.equal(ffn.fused_ffn(x[:M], w13, w2), y), M
+
+
+def test_k7a_ring_launches_allocations_and_graph_replay(cuda_device):
+    """K7a at DeepSeek-V2-Lite's dense layer: one kernel and one allocation,
+    its output, a call at any row count; a call captured at M 9, replayed
+    after an eager call at Mistral-7B's FFN has outgrown the workspace the
+    graph holds, with new inputs in the captured buffers, gives the eager M
+    9 bits; the counters are left zero, in the set the graph holds too."""
+    stream = torch.cuda.Stream(cuda_device)
+    h, nw, w13, w2 = _ffn_inputs(cuda_device, 32, 2048, 10944, seed=3)
+    small = h[:9].clone()
+    fn = lambda: ffn.fused_ffn_block(small, nw, w13, w2, 1e-5)
+    ffn.WORKSPACE_FFN.held.clear()  # the warm call below makes this stream's set
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for M in (9, 1, 32, 17, 9, 9, 2, 8, 31, 9):  # the set made at M 9 takes them all
+            ffn.fused_ffn_block(h[:M], nw, w13, w2, 1e-5)
+        stream.synchronize()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 10
+    assert _graph_node_types(fn, cuda_device) == [0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fn()
+    retired = len(ffn.WORKSPACE_FFN.retired)
+    wide = _ffn_inputs(cuda_device, 32, 4096, 14336, seed=4)
+    with torch.cuda.stream(stream):
+        ffn.fused_ffn_block(*wide, 1e-5)  # a larger workspace; the captured set is kept
+    stream.synchronize()
+    assert len(ffn.WORKSPACE_FFN.retired) == retired + 1
+    small.copy_(small[..., torch.randperm(2048, device=cuda_device)].clone())
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn())
+    sets = [bufs for bufs, _, _ in ffn.WORKSPACE_FFN.held.values()] + ffn.WORKSPACE_FFN.retired
+    assert all(int(bufs[3].abs().sum()) == 0 for bufs in sets)
+
+
+# Profiles K7a and K7 at DeepSeek-V2-Lite's dense layer 0 (M 16) and prints
+# the device activities' names of each call, one profiler session a call
+_PROFILE_K7_NAMES = """
+import json, torch
+from prego_tpu_torch.ops import fused_ffn as ffn
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev)
+gen.manual_seed(5)
+rn = lambda *shape, scale=1.0: (torch.randn(*shape, device=dev, generator=gen) * scale).to(
+    torch.bfloat16)
+D, F = 2048, 10944
+h, nw = rn(16, D), rn(D, scale=0.1) + 1
+w13, w2 = rn(D, 2 * F, scale=D ** -0.5), rn(F, D, scale=F ** -0.5)
+x = ffn.rms_norm(h, nw, 1e-5)
+calls = {"K7a": lambda: ffn.fused_ffn_block(h, nw, w13, w2, 1e-5),
+         "K7": lambda: ffn.fused_ffn(x, w13, w2)}
+for fn in calls.values():  # built and warm
+    fn()
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+names = {}
+for kernel, fn in calls.items():
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names[kernel] = sorted({e.name for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA})
+print(json.dumps(names))
+"""
+
+
+def test_k7a_and_k7_kernel_names_as_the_traces_are_read(cuda_device):
+    """Under the profiler K7a's ring kernel carries one of the names
+    perf_bench/readers.py reads K7a by, and not perf_bench/moe_counts.py's
+    K7 name; K7's kernel the other way round. Profiled in a process of its
+    own: on an H100, sessions in this file's process, after its other
+    tests, recorded no device activity at all."""
+    from perf_bench import moe_counts, readers
+
+    proc = subprocess.run([sys.executable, "-c", _PROFILE_K7_NAMES],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    matches = lambda ns, keys: [n for n in ns if any(k in n for k in keys)]
+    assert len(names["K7a"]) == 1 and matches(names["K7a"], readers.K7A), names
+    assert not matches(names["K7a"], moe_counts.K7), names
+    assert len(names["K7"]) == 1 and matches(names["K7"], moe_counts.K7), names
+    assert not matches(names["K7"], readers.K7A), names
+
+
 def _digest(*tensors):
     h = hashlib.sha256()
     for t in tensors:
@@ -784,22 +967,23 @@ def _digest(*tensors):
 
 def k7a_k7q_digests(device):
     """SHA-256 (16 hex digits) of K7a's and K7q's outputs at the 7B FFN, M
-    1 and 8, on inputs made with numpy from a seed."""
+    1 and 8 (and K7a's at M 32), on inputs made with numpy from a seed."""
     out = {}
-    for M in (1, 8):
+    for M in (1, 8, 32):
         h, nw, w13, w2 = _ffn_inputs(device, M, 4096, 11008, seed=70 + M)
         out[f"K7a M {M}"] = _digest(ffn.fused_ffn_block(h, nw, w13, w2, 1e-5))
-        out[f"K7q M {M}"] = _digest(ffn.fused_ffn_block_q8(
-            *_ffn_q8_inputs(device, M, 4096, 11008, seed=80 + M), 1e-5))
+        if M <= 8:
+            out[f"K7q M {M}"] = _digest(ffn.fused_ffn_block_q8(
+                *_ffn_q8_inputs(device, M, 4096, 11008, seed=80 + M), 1e-5))
     return out
 
 
-# K7a's and K7q's digests at 09bfd55, before K7's redesign: K7a shares
-# csrc/fused_ffn.cu with K7's first design, and K7's new kernel copies
-# K7q's ring; neither may move (tools/kernel_ab.py holds the two checkouts'
-# outputs equal in turns as well)
-K7A_K7Q_DIGESTS = {"K7a M 1": "04398cff5da9a2a7", "K7q M 1": "85ba0cc296fbff7d",
-                   "K7a M 8": "04b0038338ec795a", "K7q M 8": "19f8d3944fea7d61"}
+# K7q's digests at 09bfd55, before K7's redesign, and K7a's since it moved
+# onto K7's ring (its f32 sums in the ring's split order): neither may move
+# (tools/kernel_ab.py holds two checkouts' outputs equal in turns as well)
+K7A_K7Q_DIGESTS = {"K7a M 1": "8a8cca75a447f4c3", "K7q M 1": "85ba0cc296fbff7d",
+                   "K7a M 8": "83130ccd1fa5083e", "K7q M 8": "19f8d3944fea7d61",
+                   "K7a M 32": "dafcadf7e278ef36"}
 
 
 def test_k7a_and_k7q_outputs_keep_their_bits(cuda_device):

@@ -181,3 +181,74 @@ def test_q8_splits_fill_the_card_once(D, F, sms, want):
         assert -(-F // 256) * P <= max(sms, -(-F // 256))
         assert -(-D // 512) * S <= max(sms, -(-D // 512))
         assert P <= -(-D // 32) and S <= -(-F // 32)
+
+
+@pytest.mark.parametrize("M,D,F,sms,want", [
+    (1, 4096, 14336, 132, ("ring", 1)),    # Mistral-7B: a decode row
+    (8, 4096, 14336, 132, ("ring", 1)),
+    (9, 4096, 14336, 132, ("ring", 1)),    # two n8 tiles, one weight read
+    (32, 4096, 14336, 132, ("ring", 1)),   # the most a step of the cells has
+    (33, 4096, 14336, 132, ("ring", 2)),
+    (64, 4096, 14336, 132, ("ring", 2)),
+    (65, 4096, 14336, 132, ("ring", 3)),
+    (1, 2048, 10944, 132, ("ring", 1)),    # DeepSeek-V2-Lite's dense layer 0
+    (32, 2048, 10944, 132, ("ring", 1)),
+    (40, 2048, 10944, 132, ("ring", 2)),
+    (32, 2048, 2816, 132, ("ring", 1)),    # its shared experts (K7)
+    (33, 2048, 2816, 132, ("ring", 2)),
+    (32, 4096, 11008, 132, ("ring", 1)),   # 7B widths
+    (32, 5120, 13824, 132, ("ring", 1)),   # 13B: one call (its entry point launches 25 + 7)
+    (33, 5120, 13824, 132, ("ring", 2)),
+    (1, 512, 1000, 132, ("first", 1)),     # F 1000: no 16-byte boundary for TMA
+    (8, 512, 1000, 132, ("first", 1)),
+    (9, 512, 1000, 132, ("first", 2)),     # the first design, 8 rows a launch
+    (32, 512, 1000, 132, ("first", 4)),
+    (32, 8192, 28672, 132, ("first", 4)),  # a split past shared memory
+    (32, 4096, 11008, 32, ("first", 4)),   # more column tiles than SMs
+])
+def test_ffn_dispatch_rule(M, D, F, sms, want):
+    """K7a's and K7's design and launches from (M, D, F, SMs) alone: one
+    ring launch for up to 32 rows where the ring takes (D, F), else the
+    first design in launches of 8 rows."""
+    design, step = port.ffn_design(D, F, sms)
+    assert (design, -(-M // step)) == want
+    assert (want[0] == "ring") == (port.ring_splits(D, F, sms) is not None)
+
+
+@pytest.mark.parametrize("D,F", [(4096, 14336), (2048, 10944), (2048, 2816), (5120, 13824),
+                                 (64, 176), (256, 1024)])
+def test_ring_workspace_holds_every_call(D, F):
+    """The workspace of the most rows a ring call takes holds that shape's
+    partial sums, a and counters: one set a card serves every shape."""
+    design, rows = port.ffn_design(D, F, 132)
+    P, S = port.ring_splits(D, F, 132)
+    assert (design, rows) == ("ring", port.RING_MAX_ROWS)
+    part13, a, part2, counters = port._ring_scratch(F, 132)
+    assert P * rows * 2 * F <= part13 and rows * F <= a and S * rows * D <= part2
+    assert port._ring_counters(D, F) <= counters
+
+
+def test_k7a_launch_count_sums_its_ring_and_first_design():
+    """chip_smoke.py's count of K7a ("fused_ffn_block") is its ring's
+    launches and its first design's together; reset_launches zeroes both."""
+    from prego_tpu_torch import ops
+    from prego_tpu_torch.ops._cuda import CudaKernel
+
+    saved = {k: k.launches for k in CudaKernel.instances}
+    try:
+        port.KERNEL.launches, port.KERNEL_BLOCK.launches = 3, 4
+        counts = ops.kernel_launches()
+        assert counts["fused_ffn_block"] == 7 and set(counts) == set(ops.kernels())
+        ops.reset_launches()
+        assert port.KERNEL.launches == port.KERNEL_BLOCK.launches == 0
+    finally:
+        for k, n in saved.items():
+            k.launches = n
+
+
+def test_block_takes_plain_version_on_cpu_at_32_rows():
+    h, nw, w13, w2 = _inputs(5, 32, 64, 128)
+    before = port.KERNEL.launches, port.KERNEL_BLOCK.launches
+    out = port.fused_ffn_block(t(h), t(nw), t(w13), t(w2), EPS)
+    assert (port.KERNEL.launches, port.KERNEL_BLOCK.launches) == before
+    assert torch.equal(out, port.fused_ffn_block_reference(t(h), t(nw), t(w13), t(w2), EPS))

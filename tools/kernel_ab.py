@@ -37,10 +37,14 @@ with chip_smoke.py's helpers:
       + cast, or K4 + cast + add, beside it)
   K7q the 7B int8 FFN sub-layer (D 4096, F 11008) at M 1 to 8 (the unfused
       rms_norm + K4 + silu * up + K4 + add beside it)
-  K7a the 7B bf16 FFN sub-layer at M 1 and 8 (its design is not to move:
-      read beside K7q's and K7's)
-  K7  the 1B FFN (D 2048, F 5632) at M 1 and 8 and the 7B FFN (D 4096, F
-      11008) at M 1
+  K7a the 7B bf16 FFN sub-layer at M 1 and 8, Mistral-7B's (D 4096, F
+      14336) at M 1, 8, 16, 24 and 32, DeepSeek-V2-Lite's dense layer 0 (D
+      2048, F 10944) at M 8 and 32
+  K7  the 1B FFN (D 2048, F 5632) at M 1 and 8, the 7B FFN (D 4096, F
+      11008) at M 1, DeepSeek-V2-Lite's shared experts (D 2048, F 2816) at
+      M 8 and 32
+K7a's and K7's cases also give their bound (``bound_ms``: the weights read
+once, the rows in and out, at 3.35 TB/s).
   K1  the GRU recurrence at H 1024: B 64, T 256 (recognition eval), B 16,
       T 128 (training) and B 128, T 512; us a frame beside the device time
   K6  the GRU backward recurrence at H 1024, T 128: B 16 (training) and
@@ -430,8 +434,11 @@ def k7q_cases(sm, dev):
 
 
 def k7_cases(sm, dev, block):
-    """K7a (block) at the 7B FFN, M 1 and 8; or K7 at the 1B FFN, M 1 and
-    8, and at the 7B FFN, M 1."""
+    """K7a (block) at the 7B FFN, M 1 and 8, at Mistral-7B's, M 1, 8, 16,
+    24 and 32, and at DeepSeek-V2-Lite's dense layer 0, M 8 and 32; or K7 at
+    the 1B FFN, M 1 and 8, at the 7B FFN, M 1, and at DeepSeek-V2-Lite's
+    shared experts, M 8 and 32. Each beside its bound: the weights (and the
+    norm's) read once, the rows in and out, at 3.35 TB/s."""
     from prego_tpu_torch.ops import fused_ffn as ffn
 
     gen = torch.Generator(device=dev)
@@ -439,7 +446,8 @@ def k7_cases(sm, dev, block):
     bf16, eps = torch.bfloat16, 1e-5
     rn = lambda *shape, scale=1.0: (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf16)
     name = "K7a" if block else "K7"
-    shapes = [(4096, 11008, (1, 8))] if block else [(2048, 5632, (1, 8)), (4096, 11008, (1,))]
+    shapes = ([(4096, 11008, (1, 8)), (4096, 14336, (1, 8, 16, 24, 32)), (2048, 10944, (8, 32))]
+              if block else [(2048, 5632, (1, 8)), (4096, 11008, (1,)), (2048, 2816, (8, 32))])
     for D, F, rows in shapes:
         weights = sm.copies_past_l2(lambda: (rn(D, scale=0.1) + 1, rn(D, 2 * F, scale=D ** -0.5),
                                              rn(F, D, scale=F ** -0.5)), 6 * D * F)
@@ -458,8 +466,10 @@ def k7_cases(sm, dev, block):
                 raise AssertionError(f"{name} M {M} D {D}: max_abs_err {err}")
             if CHECK and not torch.equal(fn(*sets[0]), out):
                 raise AssertionError(f"{name} M {M} D {D}: a second call gave other bits")
+            nbytes = 2 * (3 * D * F + 2 * M * D + D) if block else 2 * 3 * D * F + 6 * M * D
             yield dict(kernel=name, shape=f"M {M} D {D} F {F}", max_abs_err=err,
-                       sha256=digest(out), **timed(sm, f"{name} M {M} D {D}", fn, sets, 50))
+                       sha256=digest(out), bound_ms=nbytes / 3.35e9,
+                       **timed(sm, f"{name} M {M} D {D}", fn, sets, 50))
         del weights
 
 
